@@ -4,20 +4,32 @@
     python3 chip_smoke.py
 
 Needs one CUDA device and nvcc. It builds the kernels from the sources in
-this checkout, holds each kernel against its plain PyTorch version at the
-flagship's shapes, drives `align()` end to end on 8 synthetic 584x388 RGB
-pairs with known motion (HOMOGRAPHY + CHARBONNIER, lambda annealed 80 -> 5,
-5 scales, then the default AlignConfig), checks that the main path went
-through every kernel, and times it. Its last line is a JSON object with
-"ok": true. It exits non-zero, without that line, when there is no CUDA
-device or any phase fails. It imports nothing of JAX.
+this checkout, holds each kernel (K1 fused iteration, K3 warp, K4 moments,
+K5 warp floor) against its plain PyTorch version at the flagship's shapes,
+then drives the port's entry points, each with the kernels' launch counts
+set to 0 just before it and read just after:
+
+- `align()` end to end on 8 synthetic 584x388 RGB pairs with known motion
+  (HOMOGRAPHY + CHARBONNIER, lambda annealed 80 -> 5, 5 scales, then the
+  default AlignConfig), held against the ground truth and the CPU path;
+- `eval.benchmarks.run_benchmark()`, the full record (flagship, hard
+  motion, fixed 30 iterations, K1 roofline, K5 floor, 720p/1080p/4K),
+  printed on one line;
+- `eval.profile_stages.profile_stages()`, the stage table;
+- `eval.harness` sweeps on 16 procedural 256x256 contents: five motion
+  models, and the robust losses against QUADRATIC on occluded pairs.
+
+It prints one JSON line with every kernel (launches summed over those
+runs, time, plain time, bound, library time), the card's name and power
+limit, and last a JSON object with "ok": true. It exits non-zero, without that
+line, when there is no CUDA device or any phase fails. It imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -29,17 +41,14 @@ KERNEL_TOL = 2e-4                    # moments, normalized by max(|ref|, 1)
 WARP_TOL = 2e-3                      # warp of 0..255 images, absolute
 CORNER_TOL_GT = 0.1                  # px, align against the ground truth
 CORNER_TOL_CPU = 1e-2                # px, CUDA align against the CPU plain align
+EVAL_N, EVAL_SIZE = 16, 256          # procedural contents of the eval phase
+EVAL_MAE = 1e-3                      # clean pairs, every motion model
+OCCL_MAE_ROBUST = 1e-2               # occluded pairs, every robust loss
+OCCL_MAE_QUADRATIC = 0.1             # occluded pairs: QUADRATIC must exceed it
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def require(cond: bool, what: str) -> None:
@@ -56,15 +65,19 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import inverse_compositional_algorithm_tpu_torch as ica
     from inverse_compositional_algorithm_tpu_torch.ops import gradients, pyramid, warp
+    from inverse_compositional_algorithm_tpu_torch.eval import (
+        benchmarks, harness, profile_stages, run_eval,
+    )
     from inverse_compositional_algorithm_tpu_torch.ops.kernels import (
-        _build, fused_iter as k1, normal_eq as k4, warp as k3,
+        _build, fused_iter as k1, normal_eq as k4, warp as k3, warp_floor as k5,
     )
     from inverse_compositional_algorithm_tpu_torch.ops.normal_equations import grad_moments
     from inverse_compositional_algorithm_tpu_torch.ops.transforms import transform_points
 
     T, R = ica.TransformType, ica.RobustLoss
     dev = torch.device("cuda")
-    card = card_line()
+    card = benchmarks.card_info()["nvidia_smi"]     # name, power limit
+    require(card is not None, "nvidia-smi is missing")
     log(f"phase 1 card: {card}")
 
     # ---- phase 2: build ----
@@ -78,16 +91,8 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}", file=sys.stderr)
 
     def cuda_ms(fn, n: int) -> float:
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / n
+        """Mean ms of n back-to-back calls between CUDA events, after a warm-up."""
+        return benchmarks.cuda_event_ms(fn, repeats=n, nsamples=1)[0]
 
     rng = np.random.default_rng(0)
 
@@ -111,6 +116,17 @@ def main() -> int:
         return torch.tensor(p, device=dev)
 
     kernels = {}
+
+    def nbytes(*tensors) -> int:
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def bound(entry, nbyte, nflop):
+        """Fill bound_ms/bound_by from the bytes the kernel must move (each
+        input read once, each output written once) and its flops, against
+        the card's HBM and FP32 peaks."""
+        us, by = benchmarks.roofline_bound_us(nbyte, nflop)
+        require(us is not None, f"no peak rates known for {card}")
+        entry.update(bound_ms=us / 1e3, bound_by=by)
 
     # ---- phase 3: K3 warp ----
     def check_warp(img_p, gx, gy, what):
@@ -138,7 +154,12 @@ def main() -> int:
         replaces="inverse_compositional_algorithm_tpu/ops/pallas/warp.py:194",
         max_abs_err=err3,
         ms=cuda_ms(lambda: k3.warp_planar(img_p, gx, gy), 50),
-        plain_ms=cuda_ms(lambda: k3.warp_planar_ref(img_p, gx, gy), 10))
+        plain_ms=cuda_ms(lambda: k3.warp_planar_ref(img_p, gx, gy), 10),
+        # F.grid_sample's bicubic uses a = -0.75 and another border rule:
+        # no PyTorch call computes this function.
+        library_ms=None)
+    bound(kernels["warp_planar"], nbytes(img_p, gx, gy) + nbytes(img_p),   # out: img_p's size
+          B * H * W * benchmarks.warp_flops_per_pixel(C))
 
     # ---- phase 4: K4 moments ----
     def check_moments(got, ref, what):
@@ -162,6 +183,13 @@ def main() -> int:
         max_abs_err=err4,
         ms=cuda_ms(lambda: k4.weighted_moments(maps), 50),
         plain_ms=cuda_ms(lambda: k4.weighted_moments_ref(maps), 10))
+    # The library call: the one einsum of moments_ref, powers made beforehand.
+    xp = k4._powers(W, 1.0 / max(H, W), 0, maps)
+    yp = k4._powers(H, 1.0 / max(H, W), 0, maps)
+    kernels["weighted_moments"]["library_ms"] = cuda_ms(
+        lambda: torch.einsum("bkyx,xi,yj->bkji", maps, xp, yp), 50)
+    bound(kernels["weighted_moments"], nbytes(maps) + B * 3 * 64 * 4,      # out: [B, 3, 8, 8]
+          B * H * W * benchmarks.moments_flops_per_pixel(3))
 
     # ---- phase 5: K1 fused iteration ----
     def k1_case(h, w, delta):
@@ -192,7 +220,11 @@ def main() -> int:
                     replaces="inverse_compositional_algorithm_tpu/ops/pallas/fused_iter.py:312",
                     max_abs_err=err1,
                     ms=cuda_ms(lambda: k1.fused_iter_moments(*args), 50),
-                    plain_ms=cuda_ms(lambda: k1.fused_iter_moments_ref(*args), 10))
+                    plain_ms=cuda_ms(lambda: k1.fused_iter_moments_ref(*args), 10),
+                    library_ms=None)          # no PyTorch call fuses this chain
+                bound(kernels["fused_iter_moments"],
+                      nbytes(plan.i2p, plan.tplp, gx, gy, lam) + B * 5 * 64 * 4,  # out: [B, 5, 8, 8]
+                      B * h * w * benchmarks.fused_iter_flops_per_pixel(C))
 
     # ---- phase 6: the main path end to end ----
     base = pyramid.gaussian_blur(rand_images(1, H, W), 2.0)[0]
@@ -211,18 +243,29 @@ def main() -> int:
         bx, by = transform_points(pb.double(), ttype, cx, cy)
         return float(torch.hypot(ax - bx, ay - by).max())
 
-    modules = {"fused_iter_moments": k1, "warp_planar": k3, "weighted_moments": k4}
+    modules = {"fused_iter_moments": k1, "warp_planar": k3, "weighted_moments": k4,
+               "warp_floor": k5}
+    launches = {k: 0 for k in modules}
+
+    def window(fn):
+        """Run an entry point with every launch count set to 0 just before
+        and read just after; the counts add into `launches`."""
+        for m in modules.values():
+            m.LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: m.LAUNCHES for k, m in modules.items()}
+        for k, v in counts.items():
+            launches[k] += v
+        return out, counts
+
     flagship = ica.AlignConfig(transform=T.HOMOGRAPHY, robust=R.CHARBONNIER, lam=0.0,
                                nscales=5, nu=0.5, delta=10)
     default = ica.AlignConfig()
     runs = {}
     for name, cfg in [("flagship", flagship), ("default", default)]:
         i1, i2, p_gt = pairs(cfg.transform)
-        for m in modules.values():
-            m.LAUNCHES = 0
-        res = ica.align(i1, i2, cfg)
-        torch.cuda.synchronize()
-        counts = {k: m.LAUNCHES for k, m in modules.items()}
+        res, counts = window(lambda: ica.align(i1, i2, cfg))
         require(res.p.shape == (B, 8) and res.iw.shape == (B, H, W, C), f"{name}: shapes")
         require(bool(torch.isfinite(res.p).all()), f"{name}: non-finite p")
         require(not bool(res.diverged.any()), f"{name}: a pair diverged")
@@ -236,8 +279,6 @@ def main() -> int:
             f"flagship align did not launch K1 and K3: {fl}")
     require(de["weighted_moments"] > 0 and de["fused_iter_moments"] > 0,
             f"default align did not launch K4 and K1: {de}")
-    for k in kernels:
-        kernels[k]["launches"] = fl[k] + de[k]
 
     for name, run in runs.items():
         cpu = ica.align(run["i1"][:2].cpu(), run["i2"][:2].cpu(), run["cfg"])
@@ -251,10 +292,77 @@ def main() -> int:
         ms = cuda_ms(lambda: ica.align(run["i1"], run["i2"], run["cfg"]), 5)
         log(f"phase 7 align {name} batch {B}: {ms:.2f} ms per call ({card})")
 
-    order = ["fused_iter_moments", "warp_planar", "weighted_moments"]
-    print(json.dumps({"kernels": [dict(name=k, **{f: kernels[k][f] for f in (
-        "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")})
-        for k in order]}))
+    # ---- phase 8: K5 warp floor ----
+    got = k5.warp_floor(img_p)
+    ref = k5.warp_floor_ref(img_p)
+    torch.cuda.synchronize()
+    require(got.shape == (B, C, H - 3, W - 3), f"K5: shape {tuple(got.shape)}")
+    err5 = float((got - ref).abs().max())
+    require(err5 <= WARP_TOL, f"K5: max abs err {err5} > {WARP_TOL}")
+    log(f"phase 8 K5 {B}x{C}x{H}x{W}: max abs err {err5:.3g}")
+    kernels["warp_floor"] = dict(
+        route="cuda", source="inverse_compositional_algorithm_tpu_torch/ops/kernels/csrc/warp_floor.cu",
+        replaces="inverse_compositional_algorithm_tpu/eval/benchmarks.py:331",
+        max_abs_err=err5,
+        ms=cuda_ms(lambda: k5.warp_floor(img_p), 50),
+        plain_ms=cuda_ms(lambda: k5.warp_floor_ref(img_p), 10),
+        library_ms=None)   # per-pixel weights: no convolution or PyTorch call computes it
+    bound(kernels["warp_floor"], nbytes(img_p, got),
+          B * (H - 3) * (W - 3) * benchmarks.warp_flops_per_pixel(C))
+
+    # ---- phase 9: the benchmark entry point, full record ----
+    t0 = time.perf_counter()
+    rec, counts = window(benchmarks.run_benchmark)
+    log(f"phase 9 run_benchmark: {time.perf_counter() - t0:.1f} s, launches {counts}")
+    print("bench_record " + json.dumps(rec), flush=True)
+    samples = [rec["samples"], rec["hard_motion"]["samples"], rec["fixed_30_iters"]["samples"],
+               rec["roofline"]["fused_iter_samples"], rec["vpu_floor"]["floor_samples"],
+               *(line["samples"] for line in rec["large_frame"].values())]
+    for smp in samples:
+        require(all(v > 0 for k, v in smp.items() if k != "n"), f"bench: a sample <= 0: {smp}")
+    require(len(rec["large_frame"]) == 3, "bench: large-frame lines missing")
+    require(rec["card"]["name"] == torch.cuda.get_device_name(0)
+            and rec["card"]["nvidia_smi"] == card, f"bench: record names {rec['card']}")
+    require(all(counts[k] > 0 for k in ("fused_iter_moments", "warp_planar", "warp_floor")),
+            f"run_benchmark did not launch K1, K3 and K5: {counts}")
+    log(f"phase 9 bench: {rec['value']:.3f} pairs/s (batch {B}), fused/floor "
+        f"{rec['vpu_floor']['fused_over_floor']:.3f}, K1 {rec['roofline']['fused_iter_gbs']:.0f} GB/s")
+
+    # ---- phase 10: the stage profile ----
+    table, counts = window(profile_stages.profile_stages)
+    require(all(v > 0 for k, v in table.items() if k != "pct_hbm_peak"),
+            f"profile: a stage time <= 0: {table}")
+    log(f"phase 10 profile_stages: {len(table)} rows, launches {counts}")
+
+    # ---- phase 11: the accuracy sweeps ----
+    images = np.stack(run_eval._procedural_textures(EVAL_N, EVAL_SIZE, seed=0))
+    base_cfg = ica.AlignConfig(transform=T.EUCLIDEAN, robust=R.CHARBONNIER, nscales=3)
+    (clean, occl), counts = window(lambda: (harness.evaluate_transforms(images, base_cfg),
+                                            harness.evaluate_occlusion(images, base_cfg)))
+    for r in clean:
+        log(f"phase 11 eval {r.transform}: mae {r.mae:.3g}, max {r.max_err:.3g}, "
+            f"converged {r.converged_frac}, {r.pairs_per_sec:.1f} pairs/s")
+        require(r.mae <= EVAL_MAE and r.converged_frac == 1.0,
+                f"eval {r.transform}: mae {r.mae}, converged {r.converged_frac}")
+    for r in occl:
+        log(f"phase 11 occlusion {r.robust}: mae {r.mae:.3g}, max {r.max_err:.3g}, "
+            f"converged {r.converged_frac}")
+        if r.robust == "QUADRATIC":
+            require(r.mae > OCCL_MAE_QUADRATIC, f"occlusion QUADRATIC did not degrade: {r.mae}")
+        else:
+            require(r.mae <= OCCL_MAE_ROBUST, f"occlusion {r.robust}: mae {r.mae}")
+    require(all(counts[k] > 0 for k in ("fused_iter_moments", "warp_planar", "weighted_moments")),
+            f"the eval sweeps did not launch K1, K3 and K4: {counts}")
+    log(f"phase 11 eval launches {counts}")
+
+    for k in kernels:
+        kernels[k]["launches"] = launches[k]
+        require(launches[k] > 0, f"{k} was not launched by any entry point")
+    order = ["fused_iter_moments", "warp_planar", "weighted_moments", "warp_floor"]
+    fields = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+              "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [dict(name=k, **{f: kernels[k][f] for f in fields})
+                                  for k in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ The port of `inverse_compositional_algorithm_tpu` (JAX/Pallas), which stays
 beside it as the reference: the same motion models, robust losses, pyramid
 and API, with the same array layouts. The device of the data selects the
 path: CUDA tensors run the kernels of `ops/kernels/csrc/` (built with nvcc
-at first use), CPU tensors run their plain PyTorch versions.
+at first use), CPU tensors run their plain PyTorch versions. Numpy input
+goes to CUDA unless the caller passes `device="cpu"`; without a CUDA device
+it raises rather than run on the CPU.
 
 Quick start::
 
@@ -14,7 +16,7 @@ Quick start::
 
     cfg = ica.AlignConfig(transform=ica.TransformType.HOMOGRAPHY,
                           robust=ica.RobustLoss.CHARBONNIER, nscales=5)
-    result = ica.align(I1, I2, cfg, device="cuda")   # I*: [H,W,C] or [B,H,W,C]
+    result = ica.align(I1, I2, cfg)   # I*: [H,W,C] or [B,H,W,C], on CUDA
     p = result.params(cfg)
 """
 

@@ -4,7 +4,8 @@
 robust, pyramidal: src/inverse_compositional_algorithm.py:17,135,264).
 Images are [H, W, C] or [B, H, W, C] tensors or numpy arrays. Tensors stay
 on their device: CUDA tensors run the hand-written kernels, CPU tensors
-their plain versions. Numpy inputs need an explicit `device`.
+their plain versions. Numpy inputs go to CUDA unless `device` names another
+device (`device="cpu"` for the plain path); without a CUDA device they raise.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..ops.transforms import (
 from ..ops.warp import bicubic_sample, warp_image
 from .pyramidal import pyramidal_solve
 
-__all__ = ["AlignResult", "align", "warp", "transform_image"]
+__all__ = ["AlignResult", "align", "warp", "transform_image", "default_device"]
 
 
 @dataclass
@@ -48,10 +49,20 @@ class AlignResult:
         return self.p[..., : nparams(config.transform)]
 
 
+def default_device(device=None) -> torch.device:
+    """`device` if given, else CUDA; raise when CUDA is asked for and absent
+    (the port never falls back to the CPU on its own)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: the port runs on CUDA by "
+                           "default; pass device='cpu' to run on the CPU")
+    return dev
+
+
 def _to_tensor(x, dtype: torch.dtype | None, device) -> torch.Tensor:
     """A tensor stays on its device (`device`, if given, must match it); a
-    numpy array or list goes to the explicitly given `device`. dtype None
-    keeps a tensor's dtype and makes other input float32."""
+    numpy array or list goes to `device`, CUDA by default (`default_device`).
+    dtype None keeps a tensor's dtype and makes other input float32."""
     if isinstance(x, torch.Tensor):
         if device is not None:
             want = torch.device(device)
@@ -59,9 +70,8 @@ def _to_tensor(x, dtype: torch.dtype | None, device) -> torch.Tensor:
                                               and x.device.index != want.index):
                 raise ValueError(f"tensor is on {x.device}, but device={device}")
         return x if dtype is None else x.to(dtype)
-    if device is None:
-        raise ValueError("numpy input needs an explicit device= (e.g. 'cuda' or 'cpu')")
-    return torch.tensor(np.asarray(x), dtype=dtype or torch.float32, device=device)
+    return torch.tensor(np.asarray(x), dtype=dtype or torch.float32,
+                        device=default_device(device))
 
 
 def _align_impl(i1: torch.Tensor, i2: torch.Tensor, p0: torch.Tensor,
@@ -96,7 +106,9 @@ def align(i1, i2, config: AlignConfig = AlignConfig(), p0=None,
         values as in the reference).
       config: algorithm configuration.
       p0: optional warm start, [k], [8], [B, k] or [B, 8].
-      device: where numpy inputs go; for tensors, optional and must match.
+      device: where numpy inputs go, CUDA by default (raises without a CUDA
+        device; pass "cpu" for the plain path); for tensors, optional and
+        must match.
 
     Returns:
       AlignResult (batch dims match the input rank).
@@ -133,7 +145,8 @@ def align(i1, i2, config: AlignConfig = AlignConfig(), p0=None,
 def warp(image, p, config: AlignConfig = AlignConfig(), device=None) -> torch.Tensor:
     """Warp an image (or batch) by parameters p, NaN- or 0-filling
     out-of-domain pixels per config.nanifoutside (the reference's
-    `bicubic_interpolation_skimage` surface)."""
+    `bicubic_interpolation_skimage` surface). Numpy input goes to `device`,
+    CUDA by default, as in `align`."""
     image = _to_tensor(image, None, device)
     single = image.ndim == 3
     if single:
@@ -151,7 +164,8 @@ def transform_image(image, ttype: TransformType, gt, device=None) -> torch.Tenso
     """Apply the forward motion `gt`: out(x) = I(M(gt)^-1 x), so aligning
     (out, I) recovers p = params(M(gt)^-1) (reference
     src/transformation.py:266-318; every model uses params_to_matrix(gt)
-    unmodified, see PARITY.md C23)."""
+    unmodified, see PARITY.md C23). Numpy input goes to `device`, CUDA by
+    default, as in `align`."""
     image = _to_tensor(image, None, device)
     single = image.ndim == 3
     if single:

@@ -32,6 +32,7 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu (every entry returns cudaGetLastError()).
 _SIGNATURES = {
     "ica_warp_planar": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ica_warp_floor": [_P, _P, _I, _I, _I, _I, _P],
     "ica_weighted_moments": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "ica_fused_iter_moments": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _F, _P],

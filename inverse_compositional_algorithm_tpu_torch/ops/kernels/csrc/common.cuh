@@ -1,5 +1,5 @@
 // Device code shared by the alignment kernels (fused_iter.cu, warp_planar.cu,
-// weighted_moments.cu).
+// weighted_moments.cu) and the benchmark's warp floor (warp_floor.cu).
 //
 // * bicubic_setup / bicubic_eval: the Keys (a = -0.5) bicubic sampler with
 //   Neumann (clip-to-edge) taps. Replaces the TPU's shared tile core

@@ -137,19 +137,36 @@ def test_transform_image_and_warp_match_jax():
     np.testing.assert_allclose(got.numpy(), want, atol=WARP_ATOL, equal_nan=True)
 
 
-def test_numpy_input_needs_a_device():
+def test_numpy_input_needs_a_device(monkeypatch):
+    """Numpy input goes to CUDA by default: with no card, align, warp and
+    transform_image raise (they never fall back to the CPU), and
+    device="cpu" runs the plain path. A tensor on one device with device=
+    naming another raises ValueError. The CUDA side is in test_torch_gpu.py."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     i1, i2, _ = synth_batch("TRANSLATION", [[1.0, -1.0]])
-    with pytest.raises(ValueError):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         tica.align(i1, i2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tica.warp(i2[0], np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tica.transform_image(i2[0], tica.TransformType.TRANSLATION, np.zeros(2, np.float32))
+    assert tica.warp(i2[0], np.zeros(3, np.float32), device="cpu").device.type == "cpu"
     with pytest.raises(ValueError):
         tica.align(torch.tensor(i1), torch.tensor(i2), device="meta")
 
 
 def test_port_never_imports_jax():
-    """Importing the port and running a small align leaves jax unimported."""
+    """Importing the port with its entry points and running a small align
+    leaves jax unimported."""
     code = (
         "import sys, numpy as np\n"
         "import inverse_compositional_algorithm_tpu_torch as ica\n"
+        "from inverse_compositional_algorithm_tpu_torch import cli\n"
+        "from inverse_compositional_algorithm_tpu_torch.eval import (\n"
+        "    benchmarks, harness, plots, profile_stages, run_eval)\n"
+        "from inverse_compositional_algorithm_tpu_torch.ops.kernels import warp_floor\n"
+        "from inverse_compositional_algorithm_tpu_torch.utils import (\n"
+        "    imageio, profiling, validation)\n"
         "img = np.random.default_rng(0).uniform(0, 255, (24, 32, 3))\n"
         "r = ica.align(img, img, ica.AlignConfig(nscales=1, delta=2), device='cpu')\n"
         "assert r.p.shape == (8,), r.p.shape\n"

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 fused iteration, K3 warp, K4 moments) against
-their plain PyTorch versions, on a CUDA device.
+"""The port's CUDA kernels (K1 fused iteration, K3 warp, K4 moments, K5 warp
+floor) against their plain PyTorch versions, and its entry points (align,
+the benchmark, the eval harness), on a CUDA device.
 
 Every test needs a CUDA device and nvcc, and skips without them. The file
 imports nothing of JAX, so it runs where only PyTorch is installed:
@@ -20,6 +21,7 @@ from inverse_compositional_algorithm_tpu_torch.ops import gradients, normal_equa
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import fused_iter as k1
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import normal_eq as k4
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import warp as k3
+from inverse_compositional_algorithm_tpu_torch.ops.kernels import warp_floor as k5
 
 torch.set_num_threads(1)
 
@@ -131,3 +133,45 @@ def test_align_on_cuda_matches_cpu(cuda):
         bx, by = ica.ops.transforms.transform_points(cpu.p.double(), cfg.transform, xs, ys)
         assert float(torch.hypot(ax - bx, ay - by).max()) <= 1e-2
         assert torch.equal(gpu.diverged.cpu(), cpu.diverged)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 37, 70), (1, 1, 4, 4), (8, 3, 388, 584)])
+def test_warp_floor(cuda, shape):
+    img = rand(shape, 8, cuda)
+    before = k5.LAUNCHES
+    got = k5.warp_floor(img)
+    assert k5.LAUNCHES == before + 1
+    assert got.shape == (shape[0], shape[1], shape[2] - 3, shape[3] - 3)
+    assert float((got - k5.warp_floor_ref(img)).abs().max()) <= WARP_TOL
+
+
+def test_numpy_input_runs_on_cuda_by_default(cuda):
+    img = np.random.default_rng(9).uniform(0, 255, (24, 32, 3))
+    res = ica.align(img, img, ica.AlignConfig(nscales=1, delta=2))
+    assert res.p.is_cuda and res.iw.is_cuda
+    assert ica.warp(img, np.zeros(3, np.float32)).is_cuda
+    assert ica.transform_image(img, T.TRANSLATION, np.zeros(2, np.float32)).is_cuda
+
+
+def test_run_benchmark_record(cuda):
+    from inverse_compositional_algorithm_tpu_torch.eval import benchmarks
+
+    rec = benchmarks.run_benchmark(full=False, repeats=2)
+    for key in ("metric", "value", "unit", "vs_baseline", "batch", "seconds_per_batch",
+                "mean_finest_iters", "samples", "device", "card", "timing"):
+        assert key in rec
+    assert rec["card"]["name"] == torch.cuda.get_device_name(0)
+    assert rec["value"] > 0 and rec["samples"]["n"] == 3
+    assert all(v > 0 for v in rec["samples"].values())
+
+
+def test_evaluate_on_cuda_matches_cpu(cuda):
+    from inverse_compositional_algorithm_tpu_torch.eval import harness, run_eval
+
+    images = np.stack(run_eval._procedural_textures(4, 96, seed=1))
+    cfg = ica.AlignConfig(transform=T.AFFINITY, robust=R.CHARBONNIER, nscales=2, delta=6)
+    got = harness.evaluate(images, cfg)
+    want = harness.evaluate(images, cfg, device="cpu")
+    assert got.converged_frac == want.converged_frac == 1.0
+    assert got.diverged_frac == want.diverged_frac
+    assert abs(got.mae - want.mae) <= 1e-4 and abs(got.max_err - want.max_err) <= 1e-3
