@@ -4,10 +4,13 @@
     python3 chip_smoke.py
 
 Needs one CUDA device and nvcc. It builds the kernels from the sources in
-this checkout, holds each kernel (K1 fused iteration, K3 warp, K4 moments,
-K5 warp floor) against its plain PyTorch version at the flagship's shapes,
-then drives the port's entry points, each with the kernels' launch counts
-set to 0 just before it and read just after:
+this checkout (failing on a register spill in the compiler's report),
+holds each kernel (K1 fused iteration, K3 warp, K4 moments, K5 warp floor)
+against its plain PyTorch version at the flagship's shapes, and K1 and K3
+also on a 69-degree rotation and a diverged homography (NaN positions
+equal, reruns bitwise equal; K1 too on ragged and coarse frames and at
+batch 1 and 16), then drives the port's entry points, each with the
+kernels' launch counts set to 0 just before it and read just after:
 
 - `align()` end to end on 8 synthetic 584x388 RGB pairs with known motion
   (HOMOGRAPHY + CHARBONNIER, lambda annealed 80 -> 5, 5 scales, then the
@@ -20,16 +23,17 @@ set to 0 just before it and read just after:
   models, and the robust losses against QUADRATIC on occluded pairs.
 
 It prints one JSON line with every kernel (launches summed over those
-runs, time, plain time, bound, library time), the card's name and power
-limit, and last a JSON object with "ok": true. It exits non-zero, without that
-line, when there is no CUDA device or any phase fails. It imports nothing
-of JAX.
+runs, CUDA-event time, device-only time from torch.profiler, plain time,
+bound, library time), the card's name and power limit, and last a JSON
+object with "ok": true. It exits non-zero, without that line, when there
+is no CUDA device or any phase fails. It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import time
 
@@ -73,6 +77,7 @@ def main() -> int:
     )
     from inverse_compositional_algorithm_tpu_torch.ops.normal_equations import grad_moments
     from inverse_compositional_algorithm_tpu_torch.ops.transforms import transform_points
+    from inverse_compositional_algorithm_tpu_torch.utils.profiling import device_ms
 
     T, R = ica.TransformType, ica.RobustLoss
     dev = torch.device("cuda")
@@ -87,12 +92,21 @@ def main() -> int:
     log(f"phase 2 build: {build_s:.2f} s (nvcc {_build.BUILD_INFO['seconds']:.2f} s, "
         f"compiled={_build.BUILD_INFO['compiled']})")
     for line in _build.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", file=sys.stderr)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        require(spill is None or spill.groups() == ("0", "0"), f"ptxas reports a spill: {line}")
 
     def cuda_ms(fn, n: int) -> float:
         """Mean ms of n back-to-back calls between CUDA events, after a warm-up."""
         return benchmarks.cuda_event_ms(fn, repeats=n, nsamples=1)[0]
+
+    def dev_ms(fn, n: int, what: str) -> float:
+        """Mean device-only kernel ms of n calls (torch.profiler), after a warm-up."""
+        ms, per_kernel = device_ms(fn, n)
+        log(f"  device ms {what}: {ms:.4f} = "
+            + " + ".join(f"{name[:48]} {v:.4f}" for name, v in per_kernel.items()))
+        return ms
 
     rng = np.random.default_rng(0)
 
@@ -132,7 +146,10 @@ def main() -> int:
     def check_warp(img_p, gx, gy, what):
         got = k3.warp_planar(img_p, gx, gy)
         ref = k3.warp_planar_ref(img_p, gx, gy)
+        again = k3.warp_planar(img_p, gx, gy)
         torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                f"K3 {what}: reruns differ")
         require(torch.equal(torch.isnan(got), torch.isnan(ref)), f"K3 {what}: NaN positions differ")
         fin = ~torch.isnan(ref)
         err = float((got[fin] - ref[fin]).abs().max())
@@ -154,6 +171,7 @@ def main() -> int:
         replaces="inverse_compositional_algorithm_tpu/ops/pallas/warp.py:194",
         max_abs_err=err3,
         ms=cuda_ms(lambda: k3.warp_planar(img_p, gx, gy), 50),
+        device_ms=dev_ms(lambda: k3.warp_planar(img_p, gx, gy), 50, "K3"),
         plain_ms=cuda_ms(lambda: k3.warp_planar_ref(img_p, gx, gy), 10),
         # F.grid_sample's bicubic uses a = -0.75 and another border rule:
         # no PyTorch call computes this function.
@@ -182,6 +200,7 @@ def main() -> int:
         replaces="inverse_compositional_algorithm_tpu/ops/pallas/normal_eq.py:117",
         max_abs_err=err4,
         ms=cuda_ms(lambda: k4.weighted_moments(maps), 50),
+        device_ms=dev_ms(lambda: k4.weighted_moments(maps), 50, "K4"),
         plain_ms=cuda_ms(lambda: k4.weighted_moments_ref(maps), 10))
     # The library call: the one einsum of moments_ref, powers made beforehand.
     xp = k4._powers(W, 1.0 / max(H, W), 0, maps)
@@ -192,38 +211,70 @@ def main() -> int:
           B * H * W * benchmarks.moments_flops_per_pixel(3))
 
     # ---- phase 5: K1 fused iteration ----
-    def k1_case(h, w, delta):
-        i1 = pyramid.gaussian_blur(rand_images(B, h, w), 2.0)
-        i2 = pyramid.gaussian_blur(rand_images(B, h, w), 2.0)
+    def k1_inputs(b, h, w, ttype, p):
+        """Plan of blurred random images, and the motion matrices of `p`
+        (one motion for every pair) or, when None, of motion()."""
+        delta = min(10, (min(h, w) - 1) // 4)
+        i1 = pyramid.gaussian_blur(rand_images(b, h, w), 2.0)
+        i2 = pyramid.gaussian_blur(rand_images(b, h, w), 2.0)
         ix, iy = gradients.central_gradients(i1)
         band = gradients.boundary_band_mask(h, w, delta, device=dev)[None, :, :, None]
         ix, iy = ix * band, iy * band
         plan = k1.plan_fused_iter(i1, i2, ix, iy, *grad_moments(ix, iy), robust=True)
-        gx, gy = ica.transform_grid(motion(T.HOMOGRAPHY, B, h, w), T.HOMOGRAPHY, h, w)
-        return plan, gx, gy
+        p = (motion(ttype, b, h, w) if p is None
+             else ica.pad_params(torch.tensor([p], device=dev)).expand(b, 8))
+        return plan, ica.params_to_matrix(p, ttype).contiguous(), delta
 
-    lam = torch.linspace(5.0, 80.0, B, device=dev)
-    err1 = None
-    for (h, w) in [(H, W), COARSE]:
-        delta = min(10, (min(h, w) - 1) // 4)
-        plan, gx, gy = k1_case(h, w, delta)
-        for robust, nan in [(R.CHARBONNIER, True), (None, True), (R.CHARBONNIER, False)]:
-            args = (plan.i2p, plan.tplp, gx, gy, lam, h, w, robust, nan, delta)
-            err = check_moments(k1.fused_iter_moments(*args), k1.fused_iter_moments_ref(*args),
-                                f"5 K1 {h}x{w} {robust.name if robust else 'QUADRATIC'} "
-                                f"nanifoutside={nan}")
-            if (h, w) == (H, W) and robust is not None and nan:
-                err1 = err
+    def check_k1(args, what):
+        """K1 against its plain version: reruns bitwise equal, NaN positions
+        equal, the finite moments within KERNEL_TOL normalized."""
+        got = k1.fused_iter_moments(*args)
+        ref = k1.fused_iter_moments_ref(*args)
+        again = k1.fused_iter_moments(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                f"K1 {what}: reruns differ")
+        fin = torch.isfinite(ref)
+        require(torch.equal(torch.isfinite(got), fin), f"K1 {what}: non-finite positions differ")
+        scale = max(1.0, float(ref[fin].abs().max()))
+        err = float((got[fin] - ref[fin]).abs().max())
+        require(err / scale <= KERNEL_TOL, f"K1 {what}: normalized err {err / scale} > {KERNEL_TOL}")
+        require(bool((got[:, :, 5:, :] == 0).all() and (got[:, :, :, 5:] == 0).all()),
+                f"K1 {what}: padding of the [8, 8] moments is not zero")
+        log(f"phase 5 K1 {what}: max abs err {err:.3g}, normalized {err / scale:.3g}, "
+            f"non-finite {float((~fin).float().mean()):.3f}")
+        return err
+
+    all3 = [(R.CHARBONNIER, True), (None, True), (R.CHARBONNIER, False)]
+    k1_cases = [     # what, batch, h, w, motion model, motion (None: drawn), losses
+        ("flagship", B, H, W, T.HOMOGRAPHY, None, all3),
+        ("coarse", B, *COARSE, T.HOMOGRAPHY, None, all3),
+        ("ragged 49x73", 2, 49, 73, T.EUCLIDEAN, [1.5, -0.5, 0.05], all3[:1]),
+        ("batch 1", 1, H, W, T.HOMOGRAPHY, None, all3[:1]),
+        ("batch 16", 16, H, W, T.HOMOGRAPHY, None, all3[:1]),
+        ("69-degree rotation", 2, 64, 200, T.EUCLIDEAN, [0.0, 0.0, 1.2], all3[:2]),
+        ("diverged homography", 2, 64, 200, T.HOMOGRAPHY,
+         [-1.2, -2.5, 33.0, 0.04, -3.3, 26.0, 1.5e-3, -0.1], all3[:2]),
+    ]
+    for what, b, h, w, ttype, p, losses in k1_cases:
+        plan, mat, delta = k1_inputs(b, h, w, ttype, p)
+        lam = torch.linspace(5.0, 80.0, b, device=dev)
+        for robust, nan in losses:
+            args = (plan.i2p, plan.tplp, mat, ttype is T.HOMOGRAPHY, lam, h, w, robust, nan, delta)
+            err = check_k1(args, f"{what} {b}x{h}x{w} {robust.name if robust else 'QUADRATIC'} "
+                                 f"nanifoutside={nan}")
+            if what == "flagship" and robust is not None and nan:
                 kernels["fused_iter_moments"] = dict(
                     route="cuda",
                     source="inverse_compositional_algorithm_tpu_torch/ops/kernels/csrc/fused_iter.cu",
                     replaces="inverse_compositional_algorithm_tpu/ops/pallas/fused_iter.py:312",
-                    max_abs_err=err1,
+                    max_abs_err=err,
                     ms=cuda_ms(lambda: k1.fused_iter_moments(*args), 50),
+                    device_ms=dev_ms(lambda: k1.fused_iter_moments(*args), 50, "K1"),
                     plain_ms=cuda_ms(lambda: k1.fused_iter_moments_ref(*args), 10),
                     library_ms=None)          # no PyTorch call fuses this chain
                 bound(kernels["fused_iter_moments"],
-                      nbytes(plan.i2p, plan.tplp, gx, gy, lam) + B * 5 * 64 * 4,  # out: [B, 5, 8, 8]
+                      nbytes(plan.i2p, plan.tplp, mat, lam) + B * 5 * 64 * 4,  # out: [B, 5, 8, 8]
                       B * h * w * benchmarks.fused_iter_flops_per_pixel(C))
 
     # ---- phase 6: the main path end to end ----
@@ -305,6 +356,7 @@ def main() -> int:
         replaces="inverse_compositional_algorithm_tpu/eval/benchmarks.py:331",
         max_abs_err=err5,
         ms=cuda_ms(lambda: k5.warp_floor(img_p), 50),
+        device_ms=dev_ms(lambda: k5.warp_floor(img_p), 50, "K5"),
         plain_ms=cuda_ms(lambda: k5.warp_floor_ref(img_p), 10),
         library_ms=None)   # per-pixel weights: no convolution or PyTorch call computes it
     bound(kernels["warp_floor"], nbytes(img_p, got),
@@ -316,7 +368,8 @@ def main() -> int:
     log(f"phase 9 run_benchmark: {time.perf_counter() - t0:.1f} s, launches {counts}")
     print("bench_record " + json.dumps(rec), flush=True)
     samples = [rec["samples"], rec["hard_motion"]["samples"], rec["fixed_30_iters"]["samples"],
-               rec["roofline"]["fused_iter_samples"], rec["vpu_floor"]["floor_samples"],
+               rec["roofline"]["fused_iter_samples"], rec["warp_roofline"]["warp_samples"],
+               rec["vpu_floor"]["floor_samples"],
                *(line["samples"] for line in rec["large_frame"].values())]
     for smp in samples:
         require(all(v > 0 for k, v in smp.items() if k != "n"), f"bench: a sample <= 0: {smp}")
@@ -325,14 +378,20 @@ def main() -> int:
             and rec["card"]["nvidia_smi"] == card, f"bench: record names {rec['card']}")
     require(all(counts[k] > 0 for k in ("fused_iter_moments", "warp_planar", "warp_floor")),
             f"run_benchmark did not launch K1, K3 and K5: {counts}")
+    rf, wr = rec["roofline"], rec["warp_roofline"]
     log(f"phase 9 bench: {rec['value']:.3f} pairs/s (batch {B}), fused/floor "
-        f"{rec['vpu_floor']['fused_over_floor']:.3f}, K1 {rec['roofline']['fused_iter_gbs']:.0f} GB/s")
+        f"{rec['vpu_floor']['fused_over_floor']:.3f}, K1 {rf['fused_iter_gbs']:.0f} GB/s "
+        f"(event), {rf['fused_iter_device_gbs']:.0f} GB/s (device); K3 "
+        f"{wr['warp_gbs']:.0f} / {wr['warp_device_gbs']:.0f} GB/s")
 
     # ---- phase 10: the stage profile ----
     table, counts = window(profile_stages.profile_stages)
-    require(all(v > 0 for k, v in table.items() if k != "pct_hbm_peak"),
+    require(all(v > 0 for k, v in table.items() if k not in ("pct_hbm_peak", "device_ms")),
             f"profile: a stage time <= 0: {table}")
+    require(all(v > 0 for v in table["device_ms"].values()),
+            f"profile: a stage device time <= 0: {table['device_ms']}")
     log(f"phase 10 profile_stages: {len(table)} rows, launches {counts}")
+    print("profile_stages " + json.dumps(table), flush=True)
 
     # ---- phase 11: the accuracy sweeps ----
     images = np.stack(run_eval._procedural_textures(EVAL_N, EVAL_SIZE, seed=0))
@@ -359,8 +418,8 @@ def main() -> int:
         kernels[k]["launches"] = launches[k]
         require(launches[k] > 0, f"{k} was not launched by any entry point")
     order = ["fused_iter_moments", "warp_planar", "weighted_moments", "warp_floor"]
-    fields = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-              "bound_ms", "bound_by", "library_ms")
+    fields = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms",
+              "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [dict(name=k, **{f: kernels[k][f] for f in fields})
                                   for k in order]}))
     print(card)

@@ -23,7 +23,7 @@ defeat scan deduplication; neither exists here.
 Every measurement needs a CUDA device and raises without one: nothing here
 falls back to the CPU.
 
-Run:  python -m inverse_compositional_algorithm_tpu_torch.eval.benchmarks
+Run:  python -m inverse_compositional_algorithm_tpu_torch.eval.benchmarks [--roofline]
 """
 
 from __future__ import annotations
@@ -39,14 +39,16 @@ from ..config import AlignConfig
 from ..models.api import _align_impl, default_device
 from ..ops.gradients import boundary_band_mask, central_gradients
 from ..ops.kernels.fused_iter import fused_iter_moments, plan_fused_iter
+from ..ops.kernels.warp import warp_planar
 from ..ops.kernels.warp_floor import warp_floor
 from ..ops.normal_equations import RobustLoss, grad_moments
 from ..ops.pyramid import gaussian_blur
-from ..ops.transforms import TransformType, pad_params, transform_grid
+from ..ops.transforms import TransformType, pad_params, params_to_matrix, transform_grid
 from ..ops.warp import bicubic_sample
+from ..utils.profiling import device_ms
 
 __all__ = ["NUMPY_BASELINE_PAIRS_PER_SEC", "REFERENCE_DIR_ENV", "make_bench_batch",
-           "run_benchmark", "kernel_roofline", "vpu_floor", "cuda_event_ms",
+           "run_benchmark", "kernel_roofline", "warp_roofline", "vpu_floor", "cuda_event_ms",
            "card_info", "card_peaks", "hot_state", "require_cuda", "hbm_peak_gbs", "roofline_bound_us",
            "fused_iter_bytes_per_pair", "fused_iter_flops_per_pixel",
            "warp_flops_per_pixel", "moments_flops_per_pixel"]
@@ -132,11 +134,12 @@ def card_info() -> dict:
 
 def fused_iter_bytes_per_pair(c: int, height: int, width: int, robust: bool = True) -> int:
     """Bytes K1 must read per pair and iteration: the moving image (C
-    planes), the packed template (3C + 3 planes robust, 3C quadratic) and
-    gx, gy, each once. The [K, 8, 8] output and lambda (1.3 KB) are left
-    out."""
-    planes = c + (3 * c + 3 if robust else 3 * c) + 2
-    return planes * height * width * 4
+    planes), the packed template (3C + 3 planes robust, 3C quadratic), the
+    pair's lambda and its 3x3 motion matrix, each once (K1 forms the
+    coordinates itself; before it did, it also read gx and gy, 2 planes
+    more). The [K, 8, 8] output (1.3 KB) is left out."""
+    planes = c + (3 * c + 3 if robust else 3 * c)
+    return planes * height * width * 4 + 4 + 9 * 4
 
 
 def warp_flops_per_pixel(c: int) -> int:
@@ -153,10 +156,11 @@ def moments_flops_per_pixel(k: int) -> int:
 
 
 def fused_iter_flops_per_pixel(c: int, robust: bool = True) -> int:
-    """Flops per pixel of K1: the warp, the masked residual and its three
+    """Flops per pixel of K1: the sampling point (a homography's three rows
+    and two divides, 14), the warp, the masked residual and its three
     channel sums (8 per channel), rho' and the five weighted maps (7,
     robust) and the moment epilogue (K = 5 robust, 2 quadratic)."""
-    return (warp_flops_per_pixel(c) + 8 * c + (7 if robust else 0)
+    return (14 + warp_flops_per_pixel(c) + 8 * c + (7 if robust else 0)
             + moments_flops_per_pixel(5 if robust else 2))
 
 
@@ -307,38 +311,77 @@ def kernel_roofline(batch: int = 8, height: int = 388, width: int = 584,
                     repeats: int = 20, nsamples: int = 3) -> dict:
     """Roofline of the fused-iteration kernel (K1) at the bench shape.
 
-    Times K1 with CUDA events at the ground-truth motion and reports its
-    achieved HBM rate from the byte model (`fused_iter_bytes_per_pair`),
-    the share of the card's peak (None on a card the table does not know),
-    and the least time the card could take with what bounds it.
+    Times K1 at the ground-truth motion twice: with CUDA events around
+    back-to-back calls (host gaps included) and as device-only kernel time
+    from `torch.profiler` (`utils.profiling.device_ms`). Reports the
+    achieved HBM rate of each from the byte model
+    (`fused_iter_bytes_per_pair`), the share of the card's peak (None on a
+    card the table does not know), and the least time the card could take
+    with what bounds it.
     """
     require_cuda("kernel_roofline")
-    i1, i2, _, gx, gy, ix, iy, g3 = hot_state(batch, height, width, transform)
+    i1, i2, p0, _, _, ix, iy, g3 = hot_state(batch, height, width, transform)
     plan = plan_fused_iter(i1, i2, ix, iy, *g3, robust=True)
+    mat = params_to_matrix(p0, transform)
     lam = torch.full((batch,), 5.0, device=i1.device)
     loss = None if robust is RobustLoss.QUADRATIC else robust
-    ms, samp = cuda_event_ms(
-        lambda: fused_iter_moments(plan.i2p, plan.tplp, gx, gy, lam, height, width,
-                                   loss, True, 10), repeats, nsamples)
+
+    def k1():
+        return fused_iter_moments(plan.i2p, plan.tplp, mat, transform is TransformType.HOMOGRAPHY,
+                                  lam, height, width, loss, True, 10)
+
+    ms, samp = cuda_event_ms(k1, repeats, nsamples)
+    dev_ms, _ = device_ms(k1, repeats)
 
     c = i1.shape[-1]
     nbytes = batch * fused_iter_bytes_per_pair(c, height, width, loss is not None)
     nflop = batch * height * width * fused_iter_flops_per_pixel(c, loss is not None)
     gbs = nbytes / (ms * 1e-3) / 1e9
+    dev_gbs = nbytes / (dev_ms * 1e-3) / 1e9
     peak, peak_src = hbm_peak_gbs()
     bound, bound_by = roofline_bound_us(nbytes, nflop)
     return {
         "fused_iter_ms_per_batch": ms,
         "fused_iter_samples": samp,
+        "fused_iter_device_ms": dev_ms,
         "fused_iter_bytes_per_batch": nbytes,
         "fused_iter_flop_per_batch": nflop,
         "fused_iter_gbs": gbs,
+        "fused_iter_device_gbs": dev_gbs,
         "hbm_peak_gbs": peak,
         "hbm_peak_source": peak_src,
         "pct_hbm_peak": None if peak is None else 100.0 * gbs / peak,
+        "pct_hbm_peak_device": None if peak is None else 100.0 * dev_gbs / peak,
         "bound_us": bound,
         "bound_by": bound_by,
     }
+
+
+def warp_roofline(batch: int = 8, height: int = 388, width: int = 584,
+                  transform: TransformType = TransformType.HOMOGRAPHY,
+                  repeats: int = 20, nsamples: int = 3) -> dict:
+    """Roofline of the warp kernel (K3) at the bench shape: the moving
+    images warped at the ground-truth motion, as align()'s final warp does.
+    CUDA-event and device time, the achieved HBM rate of each (image, gx
+    and gy read once, the warped planes written once) and the bound."""
+    require_cuda("warp_roofline")
+    _, i2, _, gx, gy, _, _, _ = hot_state(batch, height, width, transform)
+    img_p = i2.permute(0, 3, 1, 2).contiguous()
+
+    def k3():
+        return warp_planar(img_p, gx, gy)
+
+    ms, samp = cuda_event_ms(k3, repeats, nsamples)
+    dev_ms, _ = device_ms(k3, repeats)
+    b, c, h, w = img_p.shape
+    nbytes = 4 * (2 * b * c * h * w + 2 * b * h * w)
+    nflop = b * h * w * warp_flops_per_pixel(c)
+    bound, bound_by = roofline_bound_us(nbytes, nflop)
+    return {"warp_ms_per_batch": ms, "warp_samples": samp, "warp_device_ms": dev_ms,
+            "warp_bytes_per_batch": nbytes,
+            "warp_gbs": nbytes / (ms * 1e-3) / 1e9,
+            "warp_device_gbs": nbytes / (dev_ms * 1e-3) / 1e9,
+            "bound_us": bound, "bound_by": bound_by}
 
 
 def vpu_floor(batch: int = 8, height: int = 388, width: int = 584,
@@ -381,6 +424,7 @@ def run_benchmark(batch: int = 8, height: int = 388, width: int = 584,
         near-instant convergence;
       * fixed_30_iters: tol ~ 0, every pair runs max_iter at every scale;
       * roofline: K1's achieved GB/s and its bound (`kernel_roofline`);
+      * warp_roofline: the same for K3 (`warp_roofline`);
       * vpu_floor: K5's time, and fused_over_floor = K1 / K5;
       * large_frame: 1280x720 batch 4, 1920x1080 batch 2, 3840x2160 batch 1.
     """
@@ -423,6 +467,8 @@ def run_benchmark(batch: int = 8, height: int = 388, width: int = 584,
 
     rec["roofline"] = kernel_roofline(batch, height, width, cfg.transform, cfg.robust,
                                       nsamples=nsamples)
+    rec["warp_roofline"] = warp_roofline(batch, height, width, cfg.transform,
+                                         nsamples=nsamples)
     fl = vpu_floor(batch, height, width, nsamples=nsamples)
     fl["fused_over_floor"] = (rec["roofline"]["fused_iter_ms_per_batch"]
                               / fl["floor_ms_per_batch"])
@@ -449,4 +495,11 @@ def run_benchmark(batch: int = 8, height: int = 388, width: int = 584,
 
 
 if __name__ == "__main__":
-    print(json.dumps(run_benchmark()))
+    import sys
+
+    # --roofline: the K1 and K3 lines alone (CUDA-event and device time at
+    # the bench shape).
+    if "--roofline" in sys.argv[1:]:
+        print(json.dumps({"fused_iter": kernel_roofline(), "warp": warp_roofline()}))
+    else:
+        print(json.dumps(run_benchmark()))

@@ -42,7 +42,7 @@ from ..ops.transforms import (
     nparams,
     pad_params,
     param_preconditioner,
-    transform_grid,
+    params_to_matrix,
     transform_points,
 )
 from ..ops.warp import warp_image
@@ -120,18 +120,19 @@ def _plain_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside,
 
 def _fused_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside, delta):
     """CUDA path: system(p, lam) -> (H, b) in the preconditioned metric, from
-    one fused-iteration kernel launch (the quadratic Hessian comes from the
+    one fused-iteration kernel launch, which forms the sampling coordinates
+    from the motion matrix itself (the quadratic Hessian comes from the
     moment kernel, once). On CPU tensors the same code runs the kernels'
     plain versions."""
     _, hh, ww, _ = i1.shape
     is_robust = robust is not RobustLoss.QUADRATIC
     plan = plan_fused_iter(i1, i2, ix, iy, gxx, gxy, gyy, robust=is_robust)
     h_quad = None if is_robust else fused_hessian(gxx, gxy, gyy, ttype=ttype)
+    projective = ttype is TransformType.HOMOGRAPHY
 
     def system(p, lam):
-        gx, gy = transform_grid(p, ttype, hh, ww)
-        m = fused_iter_moments(plan.i2p, plan.tplp, gx, gy, lam, hh, ww,
-                               robust if is_robust else None, nanifoutside, delta)
+        m = fused_iter_moments(plan.i2p, plan.tplp, params_to_matrix(p, ttype), projective,
+                               lam, hh, ww, robust if is_robust else None, nanifoutside, delta)
         if is_robust:
             return (_assemble_h(m[:, :3], ttype, hh, ww),
                     _assemble_b(m[:, 3:], ttype, hh, ww))

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (csrc/) at first use.
 
-All sources compile in ONE `nvcc` call for sm_90a into a shared library
-with a plain C interface, loaded through ctypes: no PyTorch headers, so the
-build takes seconds. The library goes to `<package>/_build/` (listed in
+Each .cu source compiles in its own `nvcc` process for sm_90a, all started
+together, and one more call links the objects into a shared library with a
+plain C interface, loaded through ctypes: no PyTorch headers, so the build
+takes seconds. The library goes to `<package>/_build/` (listed in
 .gitignore), named by a hash of the sources, so an edited source rebuilds
 and an unchanged one is reused. Nothing here runs at import: the build
 happens when a CUDA tensor first reaches a kernel wrapper.
@@ -24,7 +25,7 @@ __all__ = ["load_library", "launch", "use_kernel", "check_operand", "BUILD_INFO"
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,7 +35,7 @@ _SIGNATURES = {
     "ica_warp_planar": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ica_warp_floor": [_P, _P, _I, _I, _I, _I, _P],
     "ica_weighted_moments": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "ica_fused_iter_moments": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "ica_fused_iter_moments": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
@@ -77,25 +78,28 @@ def load_library() -> ctypes.CDLL:
     BUILD_INFO.update(path=str(lib_path), compiled=False, seconds=0.0, log="")
     if not lib_path.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-        # Compile to a private name and rename into place, so concurrent
-        # first users never load a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
+        # Compile in a private directory and rename the library into place,
+        # so concurrent first users never load a half-written one.
         t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
-                [_nvcc(), *_NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp, *cu],
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            procs = [subprocess.Popen(
+                [nvcc, *_NVCC_FLAGS, "-I", str(_CSRC), "-c", str(cu), "-o", f"{tmp}/{cu.stem}.o"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for cu in _sources() if cu.suffix == ".cu"]
+            outs = [(proc, proc.communicate()[0]) for proc in procs]
+            log = "".join(out for _, out in outs)
+            if any(proc.returncode != 0 for proc, _ in outs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            link = subprocess.run(
+                [nvcc, *_NVCC_FLAGS, "-shared", "-o", f"{tmp}/lib.so", *sorted(
+                    str(o) for o in Path(tmp).glob("*.o"))],
                 capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        BUILD_INFO.update(compiled=True, seconds=time.perf_counter() - t0,
-                          log=proc.stdout + proc.stderr)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                                   f"{link.stdout}\n{link.stderr}")
+            os.replace(f"{tmp}/lib.so", lib_path)
+        BUILD_INFO.update(compiled=True, seconds=time.perf_counter() - t0, log=log)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

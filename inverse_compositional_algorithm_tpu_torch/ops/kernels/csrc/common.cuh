@@ -1,15 +1,18 @@
 // Device code shared by the alignment kernels (fused_iter.cu, warp_planar.cu,
 // weighted_moments.cu) and the benchmark's warp floor (warp_floor.cu).
 //
-// * bicubic_setup / bicubic_eval: the Keys (a = -0.5) bicubic sampler with
-//   Neumann (clip-to-edge) taps. Replaces the TPU's shared tile core
-//   ops/pallas/tile_warp.py::warp_tile (+ keys_eval), whose fast/general
-//   tiers only exist to express gathers through TPU lane shuffles; here each
-//   thread reads its 16 taps straight from device memory through the
-//   read-only cache, with the semantics of ops/warp.py::bicubic_sample.
-// * accumulate_pixel / finish_row / finish_block / launch_finalize: the
-//   coordinate-moment epilogue M_k[b][a] = sum_p w_k(p) (x/L)^a (y/L)^b,
-//   a, b < 5, shared by the fused iteration (K1) and the moment kernel (K4).
+// * The Keys (a = -0.5) bicubic sampler with Neumann (clip-to-edge) taps,
+//   the semantics of ops/warp.py::bicubic_sample: keys_weights, tap_origin
+//   and Sampler (K1, K3); Bicubic / bicubic_eval, its static-index form
+//   (the warp floor K5). Replaces the TPU's shared tile core
+//   ops/pallas/tile_warp.py::warp_tile. The TPU core reads a tile's taps
+//   out of a VMEM window (fast tier) or from HBM (general tier); here every
+//   tap is read from device memory through L1, exact for any coordinate.
+//   A shared-memory tier (each tile's tap box staged by cp.async) was built
+//   for K1 and K3 and measured slower than this on both (PERF.md §6).
+// * accumulate_pixel / finish_row / finish_tile_row / finish_block /
+//   launch_finalize: the coordinate-moment epilogue
+//   M_k[b][a] = sum_p w_k(p) (x/L)^a (y/L)^b, a, b < 5, shared by the fused iteration (K1) and the moment kernel (K4).
 //   The TPU kernels carry the sum across sequential grid steps; CUDA blocks
 //   run in parallel in no order, so every block writes a partial [K][5][5]
 //   and a second kernel adds the partials in a fixed order: no atomics, and
@@ -43,27 +46,8 @@ struct Bicubic {
   float wx[4], wy[4];
 };
 
-__device__ __forceinline__ Bicubic bicubic_setup(float gx, float gy, int H, int W) {
-  Bicubic s;
-  const float x0f = floorf(gx), y0f = floorf(gy);
-  keys_weights(gx - x0f, s.wx);
-  keys_weights(gy - y0f, s.wy);
-  // A diverged warp produces |g| up to 1e5 and inf (NaN at singular
-  // pixels); converting those to int is undefined, so clamp in float first.
-  // fmaxf maps NaN to the bound, and NaN still reaches the weights above,
-  // so such a sample is NaN as in the plain sampler.
-  const int x0 = (int)fminf(fmaxf(x0f, -4.0f), (float)W + 3.0f);
-  const int y0 = (int)fminf(fmaxf(y0f, -4.0f), (float)H + 3.0f);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s.col[i] = min(max(x0 + i - 1, 0), W - 1);
-    s.row[i] = (int64_t)min(max(y0 + i - 1, 0), H - 1) * W;
-  }
-  return s;
-}
-
-// One channel plane [H, W] sampled at the setup's taps, summed in the
-// plain sampler's order (rows outer, columns inner).
+// One channel plane [H, W] sampled at the given taps, summed in the plain
+// sampler's order (rows outer, columns inner).
 __device__ __forceinline__ float bicubic_eval(const float* __restrict__ plane,
                                               const Bicubic& s) {
   float out = 0.0f;
@@ -124,9 +108,47 @@ __device__ __forceinline__ void finish_row(float wx[MAXK][DEG], int K, float yn,
   __syncwarp();
 }
 
-// End of a block (called by every thread): sum the warps' accumulators in
+// One halving step of finish_tile_row: lanes with bit O set keep the upper
+// half of v[0 .. 2O), the others the lower half, each adding its partner's.
+template <int O>
+__device__ __forceinline__ void halve(float (&v)[32], bool upper) {
+#pragma unroll
+  for (int i = 0; i < O; ++i) {
+    const float send = upper ? v[i] : v[i + O];
+    const float keep = upper ? v[i + O] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// End of a row of a band kernel (K1; called by the whole warp): the same sums
+// as finish_row, without shared memory and with 31 shuffles instead of 125.
+// The 25 (k, a) sums, zero-padded to 32, are halved across the lanes five
+// times (recursive halving), so lane t = k*DEG + a ends with rowsum[k][a]
+// and adds (y/L)^b times it into acc[b].
+__device__ __forceinline__ void finish_tile_row(const float wx[MAXK][DEG], int K, float yn,
+                                                float acc[DEG], int lane) {
+  float v[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) v[i] = i < MAXK * DEG ? wx[i / DEG][i % DEG] : 0.0f;
+  halve<16>(v, lane & 16);
+  halve<8>(v, lane & 8);
+  halve<4>(v, lane & 4);
+  halve<2>(v, lane & 2);
+  halve<1>(v, lane & 1);
+  if (lane < K * DEG) {
+    float yp = 1.0f;
+#pragma unroll
+    for (int b = 0; b < DEG; ++b) {
+      if (b > 0) yp *= yn;
+      acc[b] += yp * v[0];
+    }
+  }
+}
+
+// End of a block (called by every thread): sum the NW warps' accumulators in
 // warp order and write partial[((pair*K + k) * ntiles + tile) * 25 + b*5 + a].
-// blk_buf holds WARPS*MAXK*NMOM floats of shared memory.
+// blk_buf holds NW*MAXK*NMOM floats of shared memory.
+template <int NW = WARPS>
 __device__ __forceinline__ void finish_block(const float acc[DEG], int K, float* blk_buf,
                                              float* __restrict__ partial, int pair,
                                              int ntiles, int tile, int warp, int lane) {
@@ -140,11 +162,53 @@ __device__ __forceinline__ void finish_block(const float acc[DEG], int K, float*
   const int t = threadIdx.x;
   if (t < K * NMOM) {
     float s = 0.0f;
-    for (int w = 0; w < WARPS; ++w) s += blk_buf[w * MAXK * NMOM + t];
+    for (int w = 0; w < NW; ++w) s += blk_buf[w * MAXK * NMOM + t];
     const int k = t / NMOM, e = t % NMOM;
     partial[((int64_t)(pair * K + k) * ntiles + tile) * NMOM + e] = s;
   }
 }
+
+// ---- The sampler of K1 and K3 ----
+
+// The integer tap origin floor(g), clamped to [-4, n + 3] in float: a
+// diverged warp produces |g| up to 1e5 and inf (NaN at singular pixels),
+// and converting those to int is undefined. fmaxf maps NaN to -4; its
+// weights are NaN, so its sample is NaN whatever taps it reads, as in the
+// plain sampler. The taps are origin - 1 .. origin + 2, each clamped to the
+// image.
+__device__ __forceinline__ int tap_origin(float g, int n) {
+  return (int)fminf(fmaxf(floorf(g), -4.0f), (float)n + 3.0f);
+}
+
+// One point's tap origin and Keys weights; eval(plane, H, W) samples a
+// plane [H, W] at its 16 clamped taps, read from device memory through L1,
+// as rows of column sums sum_j wy[j] * (sum_i wx[i] * tap[j][i]). setup
+// once per point, eval once per channel.
+struct Sampler {
+  int x0, y0;   // the tap origin (tap_origin)
+  float wx[4], wy[4];
+
+  __device__ __forceinline__ void setup(float gx, float gy, int H, int W) {
+    const float x0f = floorf(gx), y0f = floorf(gy);
+    keys_weights(gx - x0f, wx);
+    keys_weights(gy - y0f, wy);
+    x0 = tap_origin(gx, W);
+    y0 = tap_origin(gy, H);
+  }
+
+  __device__ __forceinline__ float eval(const float* __restrict__ plane, int H, int W) const {
+    float out = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* r = plane + min(max(y0 + j - 1, 0), H - 1) * W;
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s += wx[i] * __ldg(r + min(max(x0 + i - 1, 0), W - 1));
+      out += wy[j] * s;
+    }
+    return out;
+  }
+};
 
 // Sum partial [BK, ntiles, 25] over tiles in order into out [BK, 8, 8]
 // (rows = y power, cols = x power, zero outside [0:5, 0:5]). Defined in

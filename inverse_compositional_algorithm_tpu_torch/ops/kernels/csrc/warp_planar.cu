@@ -3,33 +3,50 @@
 // Replaces ops/pallas/warp.py::pallas_warp_planar (_warp_kernel and its
 // streaming twin _warp_kernel_stream). The TPU kernel keeps the plane in
 // VMEM, or streams row-band windows into it for large frames; this kernel
-// reads the image from device memory through the read-only cache, so one
-// kernel serves every frame size.
+// reads the image from device memory, so one kernel serves every frame size.
 //
-// Bound on the H100: memory. Per output pixel it reads gx, gy (8 bytes),
-// writes C floats and gathers 16*C taps, which for a smooth warp mostly hit
-// L1/L2 (rows of neighbouring threads overlap). At 8 x 3 x 388 x 584 that
-// is about 36 MB of compulsory reads (coordinates 14.5 MB, image 21.8 MB)
-// and 21.8 MB of writes. Design: one thread
-// per output pixel (coalesced coordinate loads and output stores), the tap
-// indices and weights computed once and reused for every channel.
+// Bound on the H100: memory. Per output pixel it reads gx, gy (8 bytes) and
+// writes C floats, and the image is read once: at 8 x 3 x 388 x 584 that is
+// 36 MB of reads (coordinates 14.5 MB, image 21.8 MB) and 21.8 MB of writes,
+// 17.3 us at 3.35 TB/s. Design, K1's: one block per (pair, band of 8
+// output rows), one warp a row, each lane walking the row's pixels 32 apart
+// with coalesced coordinate loads and output stores; 64 registers, so 4
+// blocks (32 warps) are resident per SM. The taps come through L1, which
+// holds the image rows that neighbouring pixels and rows of the band reuse.
+// The tap origin and weights are computed once per pixel and reused for
+// every channel (unrolled for RGB). A 2-D tile walker that staged each
+// tile's tap box in shared memory by double-buffered cp.async measured
+// slower than this on the card (PERF.md §6).
 #include "common.cuh"
 
 namespace ica {
 
-__global__ void __launch_bounds__(256)
+constexpr int K3_ROWS = 8;
+constexpr int K3_THREADS = 32 * K3_ROWS;
+constexpr int K3_MIN_BLOCKS = 4;
+
+// NC channels (unrolled), or C when NC is 0.
+template <int NC>
+__global__ void __launch_bounds__(K3_THREADS, K3_MIN_BLOCKS)
 warp_planar_kernel(const float* __restrict__ img, const float* __restrict__ gx,
-                   const float* __restrict__ gy, float* __restrict__ out, int C, int H,
-                   int W, int64_t n_out) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (p >= n_out) return;
-  const int64_t g = (int64_t)b * n_out + p;
-  const Bicubic s = bicubic_setup(gx[g], gy[g], H, W);
-  const int64_t plane = (int64_t)H * W;
-  const float* src = img + (int64_t)b * C * plane;
-  float* dst = out + (int64_t)b * C * n_out + p;
-  for (int c = 0; c < C; ++c) dst[c * n_out] = bicubic_eval(src + c * plane, s);
+                   const float* __restrict__ gy, float* __restrict__ out, int C_, int H, int W,
+                   int Ho, int Wo, int nbands) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, C = NC > 0 ? NC : C_;
+  const int pair = blockIdx.x / nbands, band = blockIdx.x - pair * nbands;
+  const int row = band * K3_ROWS + warp;
+  if (row >= Ho) return;
+  const int pi = H * W, po = Ho * Wo;   // 32-bit offsets: checked by the wrapper
+  const float* src = img + (int64_t)pair * C * pi;
+  const float* gxr = gx + ((int64_t)pair * Ho + row) * Wo;
+  const float* gyr = gy + ((int64_t)pair * Ho + row) * Wo;
+  float* dst = out + (int64_t)pair * C * po + (int64_t)row * Wo;
+#pragma unroll 1
+  for (int x = lane; x < Wo; x += 32) {
+    Sampler s;
+    s.setup(__ldg(gxr + x), __ldg(gyr + x), H, W);
+#pragma unroll
+    for (int c = 0; c < C; ++c) dst[c * po + x] = s.eval(src + c * pi, H, W);
+  }
 }
 
 }  // namespace ica
@@ -37,9 +54,14 @@ warp_planar_kernel(const float* __restrict__ img, const float* __restrict__ gx,
 // img [B, C, H, W], gx/gy [B, Ho, Wo] -> out [B, C, Ho, Wo], all f32.
 extern "C" int ica_warp_planar(const float* img, const float* gx, const float* gy, float* out,
                                int B, int C, int H, int W, int Ho, int Wo, void* stream) {
-  const int64_t n_out = (int64_t)Ho * Wo;
-  const dim3 grid((unsigned)((n_out + 255) / 256), B);
-  ica::warp_planar_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(img, gx, gy, out, C, H, W,
-                                                                  n_out);
+  using namespace ica;
+  const int nbands = (Ho + K3_ROWS - 1) / K3_ROWS;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C == 3)
+    warp_planar_kernel<3><<<B * nbands, K3_THREADS, 0, s>>>(img, gx, gy, out, C, H, W, Ho, Wo,
+                                                            nbands);
+  else
+    warp_planar_kernel<0><<<B * nbands, K3_THREADS, 0, s>>>(img, gx, gy, out, C, H, W, Ho, Wo,
+                                                            nbands);
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,12 @@
 normal-equation moments, in one pass over the image.
 
 `fused_iter_moments` returns the [B, K, 8, 8] coordinate moments of one
-Gauss-Newton iteration (K = 5 robust, 2 quadratic), from which
-ops/kernels/normal_eq assembles H and b. CUDA tensors run
-csrc/fused_iter.cu, which writes no per-pixel intermediate to device
-memory; CPU tensors take `fused_iter_moments_ref`, the op chain the kernel
-replaces (warp, masked residual, robust weights, channel-reduced moments).
+Gauss-Newton iteration (K = 5 robust, 2 quadratic) at the motion given as
+3x3 matrices, from which ops/kernels/normal_eq assembles H and b. CUDA
+tensors run csrc/fused_iter.cu, which forms the sampling coordinates itself
+and writes no per-pixel intermediate to device memory; CPU tensors take
+`fused_iter_moments_ref`, the op chain the kernel replaces (transform_grid,
+warp, masked residual, robust weights, channel-reduced moments).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from dataclasses import dataclass
 import torch
 
 from ..normal_equations import RobustLoss, residual_moments, robust_weights
+from ..transforms import matrix_grid
 from ..warp import domain_mask
 from . import _build
 from .normal_eq import moments_ref
@@ -26,6 +28,8 @@ __all__ = ["FusedIterPlan", "plan_fused_iter", "fused_iter_moments",
 
 # Number of times `fused_iter_moments` launched its CUDA kernel.
 LAUNCHES = 0
+# Output rows per block of the kernel: it writes one partial per band.
+K1_ROWS = 8
 
 
 @dataclass(frozen=True)
@@ -59,11 +63,14 @@ def _unpack(tplp: torch.Tensor, c: int):
     return nhwc[..., :c], nhwc[..., c:2 * c], nhwc[..., 2 * c:3 * c], tplp[:, 3 * c:3 * c + 3]
 
 
-def fused_iter_moments_ref(i2p, tplp, gx, gy, lam, height: int, width: int,
+def fused_iter_moments_ref(i2p, tplp, mat, projective: bool, lam, height: int, width: int,
                            robust: RobustLoss | None, nanifoutside: bool,
                            delta: int, y_offset: int = 0) -> torch.Tensor:
-    """Plain version of `fused_iter_moments`: the separate-op chain."""
+    """Plain version of `fused_iter_moments`: transform_grid's coordinates
+    (`matrix_grid`), then the separate-op chain."""
     c = i2p.shape[1]
+    ho, wo = tplp.shape[-2:]
+    gx, gy = matrix_grid(mat, projective, ho, wo, y_offset)
     i1, ix, iy, g = _unpack(tplp, c)
     iw = warp_planar_ref(i2p, gx, gy).permute(0, 2, 3, 1)
     valid = domain_mask(gx, gy, height, width, delta)[..., None].to(iw.dtype)
@@ -81,7 +88,7 @@ def fused_iter_moments_ref(i2p, tplp, gx, gy, lam, height: int, width: int,
     return moments_ref(maps, 1.0 / float(max(height, width)), y_offset)
 
 
-def fused_iter_moments(i2p, tplp, gx, gy, lam, height: int, width: int,
+def fused_iter_moments(i2p, tplp, mat, projective: bool, lam, height: int, width: int,
                        robust: RobustLoss | None, nanifoutside: bool,
                        delta: int, y_offset: int = 0) -> torch.Tensor:
     """[B, K, 8, 8] weighted coordinate moments of one IC iteration.
@@ -90,12 +97,16 @@ def fused_iter_moments(i2p, tplp, gx, gy, lam, height: int, width: int,
       i2p: [B, C, H, W] planar moving image (the full frame).
       tplp: [B, P, Ho, Wo] packed template operands (`plan_fused_iter`).
         A robust-packed plan (P = 3C + 3) also serves the quadratic path.
-      gx, gy: [B, Ho, Wo] warp coordinates in global frame coordinates.
+      mat: [B, 3, 3] motion matrices (`params_to_matrix`); pixel (x, y) of
+        the grid samples I2 at transform_grid's point for them.
+      projective: divide by the third row (HOMOGRAPHY); otherwise the
+        third row is not read.
       lam: [B] per-pair robust threshold (ignored when robust is None).
       height, width: the frame's dims (= i2p's).
       robust: the loss, or None for the quadratic path.
       delta: domain margin (already capped per level by the solver).
-      y_offset: global row of grid row 0 (the moments' y powers are global).
+      y_offset: global row of grid row 0 (the coordinates' and the
+        moments' y are global).
 
     Returns:
       [B, K, 8, 8], K = 5 (rho*gxx, rho*gxy, rho*gyy, rho*u, rho*v) or
@@ -103,7 +114,7 @@ def fused_iter_moments(i2p, tplp, gx, gy, lam, height: int, width: int,
     """
     global LAUNCHES
     b, c, h, w = i2p.shape
-    npl = tplp.shape[1]
+    npl, ho, wo = tplp.shape[1:]
     if robust is RobustLoss.QUADRATIC:
         raise ValueError("pass robust=None for the quadratic path")
     if robust is not None and npl < 3 * c + 3:
@@ -113,23 +124,22 @@ def fused_iter_moments(i2p, tplp, gx, gy, lam, height: int, width: int,
     if (h, w) != (height, width):
         raise ValueError(f"i2p is {h}x{w}, expected {height}x{width}")
     lam = torch.as_tensor(lam, dtype=torch.float32, device=i2p.device).expand(b)
-    if not _build.use_kernel(i2p, tplp, gx, gy):
-        return fused_iter_moments_ref(i2p, tplp, gx, gy, lam, height, width, robust,
+    if not _build.use_kernel(i2p, tplp, mat):
+        return fused_iter_moments_ref(i2p, tplp, mat, projective, lam, height, width, robust,
                                       nanifoutside, delta, y_offset)
-    ho, wo = gx.shape[-2:]
     _build.check_operand(i2p, "i2p", (b, c, h, w))
     _build.check_operand(tplp, "tplp", (b, npl, ho, wo))
-    _build.check_operand(gx, "gx", (b, ho, wo))
-    _build.check_operand(gy, "gy", (b, ho, wo))
+    _build.check_operand(mat, "mat", (b, 3, 3))
+    if max(c * h * w, npl * ho * wo) >= 2 ** 31:
+        raise ValueError("a pair's planes are too large for the kernel's 32-bit offsets")
     lam = lam.contiguous()
     nk = 2 if robust is None else 5
-    ntiles = -(-ho // 8)
-    partial = torch.empty((b, nk, ntiles, 25), dtype=torch.float32, device=i2p.device)
+    nbands = -(-ho // K1_ROWS)
+    partial = torch.empty((b, nk, nbands, 25), dtype=torch.float32, device=i2p.device)
     out = torch.empty((b, nk, 8, 8), dtype=torch.float32, device=i2p.device)
-    _build.launch("ica_fused_iter_moments", i2p.data_ptr(), tplp.data_ptr(),
-                  gx.data_ptr(), gy.data_ptr(), lam.data_ptr(), partial.data_ptr(),
-                  out.data_ptr(), b, c, npl, h, w, ho, wo,
-                  0 if robust is None else robust.value, int(nanifoutside), int(delta),
-                  int(y_offset), 1.0 / float(max(height, width)))
+    _build.launch("ica_fused_iter_moments", i2p.data_ptr(), tplp.data_ptr(), mat.data_ptr(),
+                  lam.data_ptr(), partial.data_ptr(), out.data_ptr(), b, c, npl, h, w, ho, wo,
+                  int(projective), 0 if robust is None else robust.value, int(nanifoutside),
+                  int(delta), int(y_offset), 1.0 / float(max(height, width)))
     LAUNCHES += 1
     return out

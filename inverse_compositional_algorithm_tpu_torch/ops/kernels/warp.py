@@ -3,7 +3,7 @@
 `warp_planar` runs csrc/warp_planar.cu on CUDA tensors and its plain
 version `warp_planar_ref` (the gather sampler of ops/warp.py) on CPU
 tensors. The planar source is [B, C, H, W], contiguous and unpadded: the
-GPU kernel reads device memory directly, so the TPU package's column
+kernel reads device memory at any frame size, so the TPU package's column
 padding and VMEM resident/stream split have no counterpart here.
 """
 
@@ -39,6 +39,8 @@ def warp_planar(img_p: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor) -> torc
     _build.check_operand(img_p, "img_p", (b, c, h, w))
     _build.check_operand(gx, "gx", (b, ho, wo))
     _build.check_operand(gy, "gy", (b, ho, wo))
+    if c * max(h * w, ho * wo) >= 2 ** 31:
+        raise ValueError("a pair's planes are too large for the kernel's 32-bit offsets")
     out = torch.empty((b, c, ho, wo), dtype=torch.float32, device=img_p.device)
     _build.launch("ica_warp_planar", img_p.data_ptr(), gx.data_ptr(), gy.data_ptr(),
                   out.data_ptr(), b, c, h, w, ho, wo)

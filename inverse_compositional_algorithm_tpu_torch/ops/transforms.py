@@ -36,6 +36,7 @@ __all__ = [
     "compose_inverse",
     "invert_params",
     "transform_grid",
+    "matrix_grid",
     "transform_points",
     "jacobian_fields",
     "param_preconditioner",
@@ -202,9 +203,18 @@ def transform_grid(p: torch.Tensor, ttype: TransformType, height: int,
       (src/transformation.py:144-186).
     """
     p = pad_params(p, ttype)
-    m = params_to_matrix(p, ttype)
-    x = torch.arange(width, dtype=p.dtype, device=p.device)
-    y = torch.arange(height, dtype=p.dtype, device=p.device) + y_offset
+    return matrix_grid(params_to_matrix(p, ttype), ttype is TransformType.HOMOGRAPHY,
+                       height, width, y_offset)
+
+
+def matrix_grid(m: torch.Tensor, projective: bool, height: int, width: int,
+                y_offset: int = 0):
+    """`transform_grid` from the motion matrices m [..., 3, 3]: per pixel
+    ((m[r,0] * x) + (m[r,1] * y)) + m[r,2] for rows 0 and 1, divided by
+    row 2 when `projective`, each operation rounded on its own. The fused
+    iteration kernel forms its coordinates in this order."""
+    x = torch.arange(width, dtype=m.dtype, device=m.device)
+    y = torch.arange(height, dtype=m.dtype, device=m.device) + y_offset
     mm = m[..., None, None]
 
     def row(r):
@@ -212,7 +222,7 @@ def transform_grid(p: torch.Tensor, ttype: TransformType, height: int,
                 + mm[..., r, 2, :, :])
 
     gx, gy = row(0), row(1)
-    if ttype is TransformType.HOMOGRAPHY:
+    if projective:
         d = row(2)
         gx = gx / d
         gy = gy / d

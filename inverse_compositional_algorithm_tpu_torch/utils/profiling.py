@@ -1,8 +1,9 @@
 """Profiling and tracing utilities.
 
-Per-stage wall timers that wait for the device, and a thin wrapper over
+Per-stage wall timers that wait for the device, a thin wrapper over
 `torch.profiler` that writes a Chrome trace (viewable in Perfetto or
-chrome://tracing). The JAX package's `enable_compilation_cache` has no
+chrome://tracing), and `device_ms`, the kernels' device-only time of a
+call from the same profiler. The JAX package's `enable_compilation_cache` has no
 counterpart: PyTorch runs eagerly and the kernels' library is already
 cached by a hash of its sources (ops/kernels/_build.py).
 """
@@ -17,7 +18,11 @@ from collections import defaultdict
 
 import torch
 
-__all__ = ["StageTimer", "trace"]
+__all__ = ["StageTimer", "trace", "device_ms"]
+
+# Profiler windows device_ms runs before it gives up on one that records no
+# device activity.
+_DEVICE_MS_WINDOWS = 3
 
 
 def _on_cuda(value) -> bool:
@@ -88,3 +93,37 @@ def trace(log_dir: str | None = None):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_ms(fn, repeats: int = 50) -> tuple[float, dict]:
+    """Device-only time of `fn()` on the card: (ms per call, {kernel: ms per
+    call}) from `torch.profiler`'s per-kernel CUDA durations, summed over
+    every kernel `fn` launches and averaged over `repeats` calls after one
+    warm-up call. Host gaps between the kernels are left out, unlike a CUDA
+    event span. Now and then the profiler records no device activity for a
+    window (seen on the H100); such a window is run again, up to
+    `_DEVICE_MS_WINDOWS` windows in all, and RuntimeError is raised when
+    none recorded any."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms measures a CUDA device, and none is available")
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(_DEVICE_MS_WINDOWS):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        per_kernel = {}
+        for avg in prof.key_averages():
+            if avg.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(avg, "self_device_time_total", None)
+            if us is None:
+                us = avg.self_cuda_time_total
+            if us > 0:
+                per_kernel[avg.key] = us / 1e3 / repeats
+        if per_kernel:
+            return sum(per_kernel.values()), per_kernel
+    raise RuntimeError(f"torch.profiler recorded no device time in {_DEVICE_MS_WINDOWS} "
+                       "windows")

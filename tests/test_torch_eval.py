@@ -13,6 +13,8 @@ The measurement entry points need a CUDA device: here they must raise.
 Their runs on the card are in test_torch_gpu.py and chip_smoke.py.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,7 @@ from inverse_compositional_algorithm_tpu_torch.eval import harness as thv
 from inverse_compositional_algorithm_tpu_torch.eval import profile_stages as tps
 from inverse_compositional_algorithm_tpu_torch.eval import run_eval as tre
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import warp_floor as k5
+from inverse_compositional_algorithm_tpu_torch.utils import profiling as tpr
 
 torch.set_num_threads(1)
 
@@ -69,15 +72,16 @@ def test_make_bench_batch_matches_jax(ttype, hard):
 
 
 def test_fused_iter_byte_model():
-    """K1 reads 17 float32 planes per pair on the RGB robust path: 15.4 MB
-    at 388x584, so at batch 8 the H100 SXM's 3.35 TB/s bounds it (36.8 us)
-    well above its arithmetic at 67 TFLOP/s."""
-    assert tbm.fused_iter_bytes_per_pair(3, 388, 584) == 15_408_256
-    assert tbm.fused_iter_bytes_per_pair(3, 388, 584, robust=False) == 14 * 388 * 584 * 4
-    us, by = tbm.roofline_bound_us(8 * 15_408_256,
+    """K1 reads 15 float32 planes per pair on the RGB robust path (i2 and
+    the packed template; it forms the coordinates itself), plus lambda and
+    the 3x3 matrix: 13.6 MB at 388x584, so at batch 8 the H100 SXM's
+    3.35 TB/s bounds it (32.5 us) well above its arithmetic at 67 TFLOP/s."""
+    assert tbm.fused_iter_bytes_per_pair(3, 388, 584) == 15 * 388 * 584 * 4 + 40
+    assert tbm.fused_iter_bytes_per_pair(3, 388, 584, robust=False) == 12 * 388 * 584 * 4 + 40
+    us, by = tbm.roofline_bound_us(8 * tbm.fused_iter_bytes_per_pair(3, 388, 584),
                                    8 * 388 * 584 * tbm.fused_iter_flops_per_pixel(3),
                                    "NVIDIA H100 80GB HBM3")
-    assert by == "bytes" and us == pytest.approx(36.7958, abs=1e-3)
+    assert by == "bytes" and us == pytest.approx(32.4670, abs=1e-3)
     us, by = tbm.roofline_bound_us(1.0, 1e12, "NVIDIA H100 80GB HBM3")
     assert by == "operations" and us == pytest.approx(1e6 / 67.0)
 
@@ -95,9 +99,10 @@ def test_hbm_peak_gbs(name, peak):
         assert tbm.roofline_bound_us(1e9, 1e9, name) == (None, None)
 
 
-@pytest.mark.parametrize("fn", [tbm.run_benchmark, tbm.kernel_roofline, tbm.vpu_floor,
-                                tps.profile_stages, tps.profile_large_frame],
-                         ids=lambda f: f.__name__)
+@pytest.mark.parametrize("fn", [tbm.run_benchmark, tbm.kernel_roofline, tbm.warp_roofline,
+                                tbm.vpu_floor, tps.profile_stages, tps.profile_large_frame,
+                                functools.partial(tpr.device_ms, lambda: None)],
+                         ids=lambda f: getattr(f, "__name__", "device_ms"))
 def test_measurements_raise_without_a_card(monkeypatch, fn):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -9,7 +9,7 @@ imports nothing of JAX, so it runs where only PyTorch is installed:
 
 Tolerances: moments normalized by max(|ref|, 1) at atol 2e-4, warps of
 0..255 images at atol 2e-3 (float32 sums taken in another order), NaN
-positions equal.
+positions equal; reruns bitwise equal (no atomics on any result).
 """
 
 import numpy as np
@@ -48,23 +48,55 @@ def normalized_close(got, ref):
     assert float((got - ref).abs().max()) / n <= MOM_TOL
 
 
+def bitwise_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def grid(ttype, p, b, h, w, dev):
     pp = ica.pad_params(torch.tensor(p, dtype=torch.float32, device=dev)).expand(b, 8)
     return ica.transform_grid(pp, ttype, h, w)
 
 
-@pytest.mark.parametrize("ttype,p", [
-    (T.HOMOGRAPHY, [0.02, -0.01, 2.0, 0.015, -0.02, -1.5, 1e-4, -5e-5]),
-    (T.EUCLIDEAN, [0.0, 0.0, 1.2]),
-    (T.HOMOGRAPHY, [-1.2, -2.5, 33.0, 0.04, -3.3, 26.0, 1.5e-3, -0.1]),
-], ids=["homography", "rotation69", "diverged"])
-def test_warp_planar(cuda, ttype, p):
+def motion(ttype, p, b, dev):
+    """(K1's [b, 3, 3] motion matrices of p, projective)."""
+    pp = ica.pad_params(torch.tensor(p, dtype=torch.float32, device=dev)).expand(b, 8)
+    return ica.params_to_matrix(pp, ttype).contiguous(), ttype is T.HOMOGRAPHY
+
+
+MOTIONS = {
+    "homography": (T.HOMOGRAPHY, [0.02, -0.01, 2.0, 0.015, -0.02, -1.5, 1e-4, -5e-5]),
+    "euclidean": (T.EUCLIDEAN, [1.5, -0.5, 0.05]),
+    "rotation69": (T.EUCLIDEAN, [0.0, 0.0, 1.2]),
+    "diverged": (T.HOMOGRAPHY, [-1.2, -2.5, 33.0, 0.04, -3.3, 26.0, 1.5e-3, -0.1]),
+}
+
+
+@pytest.mark.parametrize("name", ["homography", "rotation69", "diverged"])
+def test_warp_planar(cuda, name):
     img = rand((2, 3, 64, 200), 0, cuda)
-    gx, gy = grid(ttype, p, 2, 64, 200, cuda)
+    gx, gy = grid(*MOTIONS[name], 2, 64, 200, cuda)
     got, ref = k3.warp_planar(img, gx, gy), k3.warp_planar_ref(img, gx, gy)
     assert torch.equal(torch.isnan(got), torch.isnan(ref))
     fin = ~torch.isnan(ref)
     assert float((got[fin] - ref[fin]).abs().max()) <= WARP_TOL
+    assert bitwise_equal(got, k3.warp_planar(img, gx, gy))
+
+
+@pytest.mark.parametrize("name,b,c,h,w", [
+    ("euclidean", 2, 3, 49, 73), ("homography", 2, 1, 25, 37), ("rotation69", 2, 2, 64, 200),
+    ("homography", 1, 3, 388, 584), ("homography", 16, 3, 388, 584),
+], ids=["ragged49x73", "gray25x37", "twochannel_rotation69", "batch1", "batch16"])
+def test_warp_planar_shapes(cuda, name, b, c, h, w):
+    """K3 where the bands' edges, the channel count (RGB unrolled, any other
+    C in a loop) and the batch matter: NaN positions equal, reruns bitwise
+    equal."""
+    img = rand((b, c, h, w), 0, cuda)
+    gx, gy = grid(*MOTIONS[name], b, h, w, cuda)
+    got, ref = k3.warp_planar(img, gx, gy), k3.warp_planar_ref(img, gx, gy)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    fin = ~torch.isnan(ref)
+    assert float((got[fin] - ref[fin]).abs().max()) <= WARP_TOL
+    assert bitwise_equal(got, k3.warp_planar(img, gx, gy))
 
 
 @pytest.mark.parametrize("k,h,w", [(3, 21, 37), (5, 97, 146), (1, 25, 37)])
@@ -76,23 +108,48 @@ def test_weighted_moments(cuda, k, h, w):
     assert torch.equal(got, k4.weighted_moments(maps))       # no atomics: bit-identical
 
 
+def k1_plan(b, h, w, delta, dev):
+    i1 = rand((b, h, w, 3), 2, dev)
+    i2 = rand((b, h, w, 3), 3, dev)
+    ix, iy = gradients.central_gradients(i1)
+    band = gradients.boundary_band_mask(h, w, delta, device=dev)[None, :, :, None]
+    ix, iy = ix * band, iy * band
+    return k1.plan_fused_iter(i1, i2, ix, iy, *normal_equations.grad_moments(ix, iy))
+
+
 @pytest.mark.parametrize("robust,nan", [(R.CHARBONNIER, True), (R.TRUNCATED_QUADRATIC, True),
                                         (R.GERMAN_MCCLURE, True), (R.LORENTZIAN, True),
                                         (None, True), (R.CHARBONNIER, False)])
 def test_fused_iter(cuda, robust, nan):
     b, h, w, delta = 2, 49, 73, 4
-    i1 = rand((b, h, w, 3), 2, cuda)
-    i2 = rand((b, h, w, 3), 3, cuda)
-    ix, iy = gradients.central_gradients(i1)
-    band = gradients.boundary_band_mask(h, w, delta, device=cuda)[None, :, :, None]
-    ix, iy = ix * band, iy * band
-    plan = k1.plan_fused_iter(i1, i2, ix, iy, *normal_equations.grad_moments(ix, iy))
-    gx, gy = grid(T.EUCLIDEAN, [1.5, -0.5, 0.05], b, h, w, cuda)
+    plan = k1_plan(b, h, w, delta, cuda)
     lam = torch.tensor([5.0, 17.0], device=cuda)
-    args = (plan.i2p, plan.tplp, gx, gy, lam, h, w, robust, nan, delta)
+    args = (plan.i2p, plan.tplp, *motion(*MOTIONS["euclidean"], b, cuda), lam, h, w, robust,
+            nan, delta)
     got = k1.fused_iter_moments(*args, y_offset=3)
     normalized_close(got, k1.fused_iter_moments_ref(*args, y_offset=3))
     assert torch.equal(got, k1.fused_iter_moments(*args, y_offset=3))
+
+
+@pytest.mark.parametrize("name,b,h,w", [
+    ("rotation69", 2, 64, 200), ("diverged", 2, 64, 200), ("euclidean", 2, 49, 73),
+    ("homography", 2, 25, 37), ("homography", 1, 388, 584), ("homography", 16, 388, 584),
+], ids=["rotation69", "diverged", "ragged49x73", "coarsest25x37", "batch1", "batch16"])
+def test_fused_iter_motions_and_shapes(cuda, name, b, h, w):
+    """K1 against its plain version where the motion's extremes and the
+    bands' edges matter: NaN positions equal where the moments go
+    non-finite (the diverged homography), reruns bitwise equal."""
+    delta = min(10, (min(h, w) - 1) // 4)
+    plan = k1_plan(b, h, w, delta, cuda)
+    lam = torch.linspace(5.0, 80.0, b, device=cuda)
+    args = (plan.i2p, plan.tplp, *motion(*MOTIONS[name], b, cuda), lam, h, w, R.CHARBONNIER,
+            True, delta)
+    got, ref = k1.fused_iter_moments(*args), k1.fused_iter_moments_ref(*args)
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert bool(fin.all()) == (name != "diverged")
+    normalized_close(got[fin], ref[fin])
+    assert bitwise_equal(got, k1.fused_iter_moments(*args))
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):

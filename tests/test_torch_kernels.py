@@ -169,12 +169,20 @@ def test_fused_normal_eq_matches_xla(maps, ttype):
 # ---- K1: fused iteration ----
 
 def _setup(ttype, p, b=2, h=37, w=53, c=3, delta=4, seed=0):
-    """The inputs of tests/test_fused_iter.py::_setup, as numpy float32."""
+    """The inputs of tests/test_fused_iter.py::_setup, as numpy float32:
+    the JAX side samples at JAX transform_grid's (gx, gy), the port's K1
+    forms them from the motion matrix of p."""
     rng = np.random.default_rng(seed)
     i2 = rng.uniform(0, 255, (b, h, w, c)).astype(np.float32)
     i1 = rng.uniform(0, 255, (b, h, w, c)).astype(np.float32)
     gx, gy = grids(ttype, p, b, h, w)
-    return dict(i1=i1, i2=i2, gx=gx, gy=gy, h=h, w=w, delta=delta, ttype=ttype)
+    return dict(i1=i1, i2=i2, gx=gx, gy=gy, p=p, h=h, w=w, delta=delta, ttype=ttype)
+
+
+def _motion(e, b):
+    """(the port's [b, 3, 3] float32 motion matrices of e's p, projective)."""
+    pp = ttr.pad_params(t32(np.asarray(e["p"], np.float32))).expand(b, 8)
+    return ttr.params_to_matrix(pp, e["ttype"]), e["ttype"] is T.HOMOGRAPHY
 
 
 def _port_moments(e, robust, lam, nanifoutside=True):
@@ -184,7 +192,7 @@ def _port_moments(e, robust, lam, nanifoutside=True):
     ix, iy = ix * band, iy * band
     plan = tfi.plan_fused_iter(i1, t32(e["i2"]), ix, iy, *tne.grad_moments(ix, iy),
                                robust=True)
-    return tfi.fused_iter_moments(plan.i2p, plan.tplp, t32(e["gx"]), t32(e["gy"]),
+    return tfi.fused_iter_moments(plan.i2p, plan.tplp, *_motion(e, i1.shape[0]),
                                   torch.full((i1.shape[0],), float(lam)), e["h"], e["w"],
                                   robust, nanifoutside, e["delta"])
 
@@ -270,22 +278,52 @@ def test_fused_iter_matches_op_chain(robust, lam, nan, rotate):
 
 
 def test_fused_iter_per_pair_lambda_and_y_offset():
-    """lam per pair equals one call per pair; y_offset shifts the y powers
-    as the plain moments with global rows."""
+    """lam per pair equals one call per pair; y_offset shifts the grid's
+    rows, and so the coordinates and the y powers, as transform_grid and
+    the plain moments with global rows do."""
     e = _setup(T.HOMOGRAPHY, K1_CASES[3][1], seed=4)
     i1 = t32(e["i1"])
     ix, iy = tgr.central_gradients(i1)
     plan = tfi.plan_fused_iter(i1, t32(e["i2"]), ix, iy, *tne.grad_moments(ix, iy))
-    args = (plan.i2p, plan.tplp, t32(e["gx"]), t32(e["gy"]))
-    both = tfi.fused_iter_moments(*args, torch.tensor([5.0, 40.0]), 37, 53,
+    mat, proj = _motion(e, 2)
+    args = (plan.i2p, plan.tplp, mat)
+    both = tfi.fused_iter_moments(*args, proj, torch.tensor([5.0, 40.0]), 37, 53,
                                   R.CHARBONNIER, True, 4, y_offset=6)
     for k, lam in enumerate([5.0, 40.0]):
-        one = tfi.fused_iter_moments(*(a[k:k + 1] for a in args), torch.tensor([lam]),
+        one = tfi.fused_iter_moments(*(a[k:k + 1] for a in args), proj, torch.tensor([lam]),
                                      37, 53, R.CHARBONNIER, True, 4, y_offset=6)
         np.testing.assert_allclose(both[k:k + 1].numpy(), one.numpy(), rtol=1e-6)
-    no_off = tfi.fused_iter_moments(*args, torch.tensor([5.0, 40.0]), 37, 53,
+    no_off = tfi.fused_iter_moments(*args, proj, torch.tensor([5.0, 40.0]), 37, 53,
                                     R.CHARBONNIER, True, 4)
     assert not np.allclose(both.numpy(), no_off.numpy())
+    # Row bands with global rows add up to the frame: the band's coordinates
+    # and y powers both start at its y_offset.
+    lam = torch.tensor([5.0, 40.0])
+    full = tfi.fused_iter_moments(*args, proj, lam, 37, 53, R.CHARBONNIER, True, 4)
+    top = tfi.fused_iter_moments(plan.i2p, plan.tplp[:, :, :6].contiguous(), mat, proj, lam,
+                                 37, 53, R.CHARBONNIER, True, 4)
+    rest = tfi.fused_iter_moments(plan.i2p, plan.tplp[:, :, 6:].contiguous(), mat, proj, lam,
+                                  37, 53, R.CHARBONNIER, True, 4, y_offset=6)
+    normalized_close((top + rest).numpy(), full.numpy())
+
+
+@pytest.mark.parametrize("y_offset", [0, 5])
+@pytest.mark.parametrize("ttype,p", K1_CASES, ids=[t.name for t, _ in K1_CASES])
+def test_fused_iter_ref_coordinates_are_transform_grid(ttype, p, y_offset):
+    """Float64: the plain K1's coordinates (matrix_grid of the motion
+    matrix) are the port's transform_grid bit for bit and JAX's
+    transform_grid to 1e-9, with and without a row offset."""
+    pp = ttr.pad_params(torch.tensor([p, [-v for v in p]], dtype=torch.float64))
+    gx, gy = ttr.matrix_grid(ttr.params_to_matrix(pp, ttype), ttype is T.HOMOGRAPHY, 9, 13,
+                             y_offset)
+    tx, ty = ttr.transform_grid(pp, ttype, 9, 13, y_offset=y_offset)
+    assert gx.dtype == torch.float64
+    np.testing.assert_array_equal(gx.numpy(), tx.numpy())
+    np.testing.assert_array_equal(gy.numpy(), ty.numpy())
+    jx, jy = jtr.transform_grid(jnp.asarray(pp.numpy()), jtr.TransformType[ttype.name], 9, 13,
+                                y_offset=y_offset)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(jx), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(gy.numpy(), np.asarray(jy), rtol=0, atol=1e-9)
 
 
 def test_fused_iter_rejects_bad_plans():
@@ -296,7 +334,10 @@ def test_fused_iter_rejects_bad_plans():
                                robust=False)
     assert quad.tplp.shape[1] == 9
     with pytest.raises(ValueError):
-        tfi.fused_iter_moments(quad.i2p, quad.tplp, t32(e["gx"]), t32(e["gy"]), 5.0,
+        tfi.fused_iter_moments(quad.i2p, quad.tplp, *_motion(e, 2), 5.0,
                                37, 53, R.CHARBONNIER, True, 4)
+    with pytest.raises(ValueError):
+        tfi.fused_iter_moments(quad.i2p, quad.tplp, _motion(e, 2)[0].to("meta"), False, 5.0,
+                               37, 53, None, True, 4)
     with pytest.raises(ValueError):
         tkw.warp_planar(quad.i2p, t32(e["gx"]).to("meta"), t32(e["gy"]))
