@@ -9,8 +9,10 @@ holds each kernel (K1 fused iteration, K3 warp, K4 moments, K5 warp floor)
 against its plain PyTorch version at the flagship's shapes, and K1 and K3
 also on a 69-degree rotation and a diverged homography (NaN positions
 equal, reruns bitwise equal; K1 too on ragged and coarse frames and at
-batch 1 and 16), then drives the port's entry points, each with the
-kernels' launch counts set to 0 just before it and read just after:
+batch 1 and 16; K5 on both of its load paths, TMA and plain, at ragged,
+gray, minimal and 4K frames), then drives the port's entry points, each
+with the kernels' launch counts set to 0 just before it and read just
+after:
 
 - `align()` end to end on 8 synthetic 584x388 RGB pairs with known motion
   (HOMOGRAPHY + CHARBONNIER, lambda annealed 80 -> 5, 5 scales, then the
@@ -23,8 +25,9 @@ kernels' launch counts set to 0 just before it and read just after:
   models, and the robust losses against QUADRATIC on occluded pairs.
 
 It prints one JSON line with every kernel (launches summed over those
-runs, CUDA-event time, device-only time from torch.profiler, plain time,
-bound, library time), the card's name and power limit, and last a JSON
+runs, CUDA-event time, device-only time from torch.profiler with the L2
+warm and cold, plain time, bound, library time), the card's name and
+power limit, and last a JSON
 object with "ok": true. It exits non-zero, without that line, when there
 is no CUDA device or any phase fails. It imports nothing of JAX.
 """
@@ -101,10 +104,11 @@ def main() -> int:
         """Mean ms of n back-to-back calls between CUDA events, after a warm-up."""
         return benchmarks.cuda_event_ms(fn, repeats=n, nsamples=1)[0]
 
-    def dev_ms(fn, n: int, what: str) -> float:
-        """Mean device-only kernel ms of n calls (torch.profiler), after a warm-up."""
-        ms, per_kernel = device_ms(fn, n)
-        log(f"  device ms {what}: {ms:.4f} = "
+    def dev_ms(fn, n: int, what: str, cold: bool = False) -> float:
+        """Mean device-only kernel ms of n calls (torch.profiler), after a
+        warm-up; with cold, the L2 is flushed before each call."""
+        ms, per_kernel = device_ms(fn, n, cold_l2=cold)
+        log(f"  device ms {what}{' cold L2' if cold else ''}: {ms:.4f} = "
             + " + ".join(f"{name[:48]} {v:.4f}" for name, v in per_kernel.items()))
         return ms
 
@@ -172,6 +176,7 @@ def main() -> int:
         max_abs_err=err3,
         ms=cuda_ms(lambda: k3.warp_planar(img_p, gx, gy), 50),
         device_ms=dev_ms(lambda: k3.warp_planar(img_p, gx, gy), 50, "K3"),
+        cold_device_ms=dev_ms(lambda: k3.warp_planar(img_p, gx, gy), 50, "K3", cold=True),
         plain_ms=cuda_ms(lambda: k3.warp_planar_ref(img_p, gx, gy), 10),
         # F.grid_sample's bicubic uses a = -0.75 and another border rule:
         # no PyTorch call computes this function.
@@ -201,6 +206,7 @@ def main() -> int:
         max_abs_err=err4,
         ms=cuda_ms(lambda: k4.weighted_moments(maps), 50),
         device_ms=dev_ms(lambda: k4.weighted_moments(maps), 50, "K4"),
+        cold_device_ms=dev_ms(lambda: k4.weighted_moments(maps), 50, "K4", cold=True),
         plain_ms=cuda_ms(lambda: k4.weighted_moments_ref(maps), 10))
     # The library call: the one einsum of moments_ref, powers made beforehand.
     xp = k4._powers(W, 1.0 / max(H, W), 0, maps)
@@ -271,6 +277,8 @@ def main() -> int:
                     max_abs_err=err,
                     ms=cuda_ms(lambda: k1.fused_iter_moments(*args), 50),
                     device_ms=dev_ms(lambda: k1.fused_iter_moments(*args), 50, "K1"),
+                    cold_device_ms=dev_ms(lambda: k1.fused_iter_moments(*args), 50, "K1",
+                                          cold=True),
                     plain_ms=cuda_ms(lambda: k1.fused_iter_moments_ref(*args), 10),
                     library_ms=None)          # no PyTorch call fuses this chain
                 bound(kernels["fused_iter_moments"],
@@ -344,19 +352,46 @@ def main() -> int:
         log(f"phase 7 align {name} batch {B}: {ms:.2f} ms per call ({card})")
 
     # ---- phase 8: K5 warp floor ----
-    got = k5.warp_floor(img_p)
-    ref = k5.warp_floor_ref(img_p)
-    torch.cuda.synchronize()
-    require(got.shape == (B, C, H - 3, W - 3), f"K5: shape {tuple(got.shape)}")
-    err5 = float((got - ref).abs().max())
-    require(err5 <= WARP_TOL, f"K5: max abs err {err5} > {WARP_TOL}")
-    log(f"phase 8 K5 {B}x{C}x{H}x{W}: max abs err {err5:.3g}")
+    def check_floor(x, tma, what):
+        """K5 on x against its plain version: the load path the wrapper
+        picks, the shape, reruns bitwise equal, within WARP_TOL."""
+        b, c, h, w = x.shape
+        what = f"{what} {b}x{c}x{h}x{w}"
+        require(k5.uses_tma(x) == tma, f"K5 {what}: uses_tma is not {tma}")
+        before = k5.LAUNCHES
+        got, again = k5.warp_floor(x), k5.warp_floor(x)
+        ref = k5.warp_floor_ref(x)
+        torch.cuda.synchronize()
+        require(k5.LAUNCHES == before + 2, f"K5 {what}: the kernel was not launched")
+        require(got.shape == (b, c, h - 3, w - 3), f"K5 {what}: shape {tuple(got.shape)}")
+        require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                f"K5 {what}: reruns differ")
+        err = float((got - ref).abs().max())
+        require(err <= WARP_TOL, f"K5 {what}: max abs err {err} > {WARP_TOL}")
+        log(f"phase 8 K5 {what} ({'TMA' if tma else 'plain'} loads): max abs err {err:.3g}")
+        return err, got
+
+    def rand_planes(b, c, h, w, offset=0):
+        """Random [b, c, h, w] planes whose storage starts `offset` floats
+        into its buffer."""
+        x = torch.empty(offset + b * c * h * w, dtype=torch.float32, device=dev)[offset:]
+        x.copy_(torch.tensor(rng.uniform(0, 255, x.numel()), dtype=torch.float32))
+        return x.view(b, c, h, w)
+
+    err5, got = check_floor(img_p, True, "flagship")
+    for shape, tma, what, offset in [((1, 3, 45, 135), False, "ragged", 0),
+                                     ((1, 3, 45, 136), False, "misaligned base", 1),
+                                     ((2, 1, 97, 148), True, "gray", 0),
+                                     ((1, 3, 4, 4), True, "minimum", 0),
+                                     ((1, 3, 2160, 3840), True, "4K", 0)]:
+        check_floor(rand_planes(*shape, offset=offset), tma, what)
     kernels["warp_floor"] = dict(
         route="cuda", source="inverse_compositional_algorithm_tpu_torch/ops/kernels/csrc/warp_floor.cu",
         replaces="inverse_compositional_algorithm_tpu/eval/benchmarks.py:331",
         max_abs_err=err5,
         ms=cuda_ms(lambda: k5.warp_floor(img_p), 50),
         device_ms=dev_ms(lambda: k5.warp_floor(img_p), 50, "K5"),
+        cold_device_ms=dev_ms(lambda: k5.warp_floor(img_p), 50, "K5", cold=True),
         plain_ms=cuda_ms(lambda: k5.warp_floor_ref(img_p), 10),
         library_ms=None)   # per-pixel weights: no convolution or PyTorch call computes it
     bound(kernels["warp_floor"], nbytes(img_p, got),
@@ -379,10 +414,13 @@ def main() -> int:
     require(all(counts[k] > 0 for k in ("fused_iter_moments", "warp_planar", "warp_floor")),
             f"run_benchmark did not launch K1, K3 and K5: {counts}")
     rf, wr = rec["roofline"], rec["warp_roofline"]
+    fl = rec["vpu_floor"]
     log(f"phase 9 bench: {rec['value']:.3f} pairs/s (batch {B}), fused/floor "
-        f"{rec['vpu_floor']['fused_over_floor']:.3f}, K1 {rf['fused_iter_gbs']:.0f} GB/s "
-        f"(event), {rf['fused_iter_device_gbs']:.0f} GB/s (device); K3 "
-        f"{wr['warp_gbs']:.0f} / {wr['warp_device_gbs']:.0f} GB/s")
+        f"{fl['fused_over_floor']:.3f} (event), {fl['fused_over_floor_device']:.3f} (device); "
+        f"K1 {rf['fused_iter_gbs']:.0f} GB/s (event), {rf['fused_iter_device_gbs']:.0f} GB/s "
+        f"(device); K3 {wr['warp_gbs']:.0f} / {wr['warp_device_gbs']:.0f} GB/s; K5 "
+        f"{fl['floor_gbs']:.0f} / {fl['floor_device_gbs']:.0f} / "
+        f"{fl['floor_cold_device_gbs']:.0f} GB/s (cold L2)")
 
     # ---- phase 10: the stage profile ----
     table, counts = window(profile_stages.profile_stages)
@@ -419,7 +457,7 @@ def main() -> int:
         require(launches[k] > 0, f"{k} was not launched by any entry point")
     order = ["fused_iter_moments", "warp_planar", "weighted_moments", "warp_floor"]
     fields = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms",
-              "plain_ms", "bound_ms", "bound_by", "library_ms")
+              "cold_device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [dict(name=k, **{f: kernels[k][f] for f in fields})
                                   for k in order]}))
     print(card)

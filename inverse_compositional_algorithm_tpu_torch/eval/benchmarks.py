@@ -24,6 +24,7 @@ Every measurement needs a CUDA device and raises without one: nothing here
 falls back to the CPU.
 
 Run:  python -m inverse_compositional_algorithm_tpu_torch.eval.benchmarks [--roofline]
+(--roofline: the K1, K3 and K5 kernel lines alone)
 """
 
 from __future__ import annotations
@@ -311,9 +312,10 @@ def kernel_roofline(batch: int = 8, height: int = 388, width: int = 584,
                     repeats: int = 20, nsamples: int = 3) -> dict:
     """Roofline of the fused-iteration kernel (K1) at the bench shape.
 
-    Times K1 at the ground-truth motion twice: with CUDA events around
+    Times K1 at the ground-truth motion with CUDA events around
     back-to-back calls (host gaps included) and as device-only kernel time
-    from `torch.profiler` (`utils.profiling.device_ms`). Reports the
+    from `torch.profiler` (`utils.profiling.device_ms`), with the L2 warm
+    from the last call and cold (flushed before each call). Reports the
     achieved HBM rate of each from the byte model
     (`fused_iter_bytes_per_pair`), the share of the card's peak (None on a
     card the table does not know), and the least time the card could take
@@ -332,6 +334,7 @@ def kernel_roofline(batch: int = 8, height: int = 388, width: int = 584,
 
     ms, samp = cuda_event_ms(k1, repeats, nsamples)
     dev_ms, _ = device_ms(k1, repeats)
+    cold_ms, _ = device_ms(k1, repeats, cold_l2=True)
 
     c = i1.shape[-1]
     nbytes = batch * fused_iter_bytes_per_pair(c, height, width, loss is not None)
@@ -344,6 +347,7 @@ def kernel_roofline(batch: int = 8, height: int = 388, width: int = 584,
         "fused_iter_ms_per_batch": ms,
         "fused_iter_samples": samp,
         "fused_iter_device_ms": dev_ms,
+        "fused_iter_cold_device_ms": cold_ms,
         "fused_iter_bytes_per_batch": nbytes,
         "fused_iter_flop_per_batch": nflop,
         "fused_iter_gbs": gbs,
@@ -362,8 +366,9 @@ def warp_roofline(batch: int = 8, height: int = 388, width: int = 584,
                   repeats: int = 20, nsamples: int = 3) -> dict:
     """Roofline of the warp kernel (K3) at the bench shape: the moving
     images warped at the ground-truth motion, as align()'s final warp does.
-    CUDA-event and device time, the achieved HBM rate of each (image, gx
-    and gy read once, the warped planes written once) and the bound."""
+    CUDA-event and device time (warm and cold L2), the achieved HBM rate of
+    each (image, gx and gy read once, the warped planes written once) and
+    the bound."""
     require_cuda("warp_roofline")
     _, i2, _, gx, gy, _, _, _ = hot_state(batch, height, width, transform)
     img_p = i2.permute(0, 3, 1, 2).contiguous()
@@ -373,12 +378,13 @@ def warp_roofline(batch: int = 8, height: int = 388, width: int = 584,
 
     ms, samp = cuda_event_ms(k3, repeats, nsamples)
     dev_ms, _ = device_ms(k3, repeats)
+    cold_ms, _ = device_ms(k3, repeats, cold_l2=True)
     b, c, h, w = img_p.shape
     nbytes = 4 * (2 * b * c * h * w + 2 * b * h * w)
     nflop = b * h * w * warp_flops_per_pixel(c)
     bound, bound_by = roofline_bound_us(nbytes, nflop)
     return {"warp_ms_per_batch": ms, "warp_samples": samp, "warp_device_ms": dev_ms,
-            "warp_bytes_per_batch": nbytes,
+            "warp_cold_device_ms": cold_ms, "warp_bytes_per_batch": nbytes,
             "warp_gbs": nbytes / (ms * 1e-3) / 1e9,
             "warp_device_gbs": nbytes / (dev_ms * 1e-3) / 1e9,
             "bound_us": bound, "bound_by": bound_by}
@@ -390,18 +396,31 @@ def vpu_floor(batch: int = 8, height: int = 388, width: int = 584,
     batch with static indices and weights, i.e. the warp's data movement
     and interpolation arithmetic without coordinate math, predicates or
     clipping. fused/floor (run_benchmark) is the price of the real warp
-    logic. The name and keys follow the JAX bench's record."""
+    logic. CUDA-event and device time, the latter also with a cold L2 (the
+    input and output, 43 MB at the bench shape, fit in the 50 MB L2, so
+    back-to-back calls can read part of the input from it), the achieved
+    HBM rate of each (image read once, output written once) and the bound.
+    The name and keys follow the JAX bench's record."""
     require_cuda("vpu_floor")
     i1, _, _ = make_bench_batch(batch, height, width, TransformType.TRANSLATION)
     img_p = i1.permute(0, 3, 1, 2).contiguous()
-    ms, samp = cuda_event_ms(lambda: warp_floor(img_p), repeats, nsamples)
+
+    def k5():
+        return warp_floor(img_p)
+
+    ms, samp = cuda_event_ms(k5, repeats, nsamples)
+    dev_ms, _ = device_ms(k5, repeats)
+    cold_ms, _ = device_ms(k5, repeats, cold_l2=True)
     b, c, h, w = img_p.shape
     nbytes = 4 * b * c * (h * w + (h - 3) * (w - 3))
     nflop = b * (h - 3) * (w - 3) * warp_flops_per_pixel(c)
     bound, bound_by = roofline_bound_us(nbytes, nflop)
     return {"floor_ms_per_batch": ms, "floor_samples": samp,
+            "floor_device_ms": dev_ms, "floor_cold_device_ms": cold_ms,
             "floor_bytes_per_batch": nbytes,
             "floor_gbs": nbytes / (ms * 1e-3) / 1e9,
+            "floor_device_gbs": nbytes / (dev_ms * 1e-3) / 1e9,
+            "floor_cold_device_gbs": nbytes / (cold_ms * 1e-3) / 1e9,
             "bound_us": bound, "bound_by": bound_by}
 
 
@@ -425,7 +444,8 @@ def run_benchmark(batch: int = 8, height: int = 388, width: int = 584,
       * fixed_30_iters: tol ~ 0, every pair runs max_iter at every scale;
       * roofline: K1's achieved GB/s and its bound (`kernel_roofline`);
       * warp_roofline: the same for K3 (`warp_roofline`);
-      * vpu_floor: K5's time, and fused_over_floor = K1 / K5;
+      * vpu_floor: K5's time, and fused_over_floor = K1 / K5 on CUDA-event
+        times (fused_over_floor_device: on device times);
       * large_frame: 1280x720 batch 4, 1920x1080 batch 2, 3840x2160 batch 1.
     """
     require_cuda("run_benchmark")
@@ -472,6 +492,8 @@ def run_benchmark(batch: int = 8, height: int = 388, width: int = 584,
     fl = vpu_floor(batch, height, width, nsamples=nsamples)
     fl["fused_over_floor"] = (rec["roofline"]["fused_iter_ms_per_batch"]
                               / fl["floor_ms_per_batch"])
+    fl["fused_over_floor_device"] = (rec["roofline"]["fused_iter_device_ms"]
+                                     / fl["floor_device_ms"])
     rec["vpu_floor"] = fl
 
     # Large frames through the full pipeline. px_rate = pairs/s * megapixels
@@ -497,9 +519,10 @@ def run_benchmark(batch: int = 8, height: int = 388, width: int = 584,
 if __name__ == "__main__":
     import sys
 
-    # --roofline: the K1 and K3 lines alone (CUDA-event and device time at
-    # the bench shape).
+    # --roofline: the K1, K3 and K5 lines alone (CUDA-event and device time,
+    # warm and cold L2, at the bench shape).
     if "--roofline" in sys.argv[1:]:
-        print(json.dumps({"fused_iter": kernel_roofline(), "warp": warp_roofline()}))
+        print(json.dumps({"fused_iter": kernel_roofline(), "warp": warp_roofline(),
+                          "floor": vpu_floor()}))
     else:
         print(json.dumps(run_benchmark()))

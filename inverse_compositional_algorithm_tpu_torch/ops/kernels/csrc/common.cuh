@@ -2,9 +2,8 @@
 // weighted_moments.cu) and the benchmark's warp floor (warp_floor.cu).
 //
 // * The Keys (a = -0.5) bicubic sampler with Neumann (clip-to-edge) taps,
-//   the semantics of ops/warp.py::bicubic_sample: keys_weights, tap_origin
-//   and Sampler (K1, K3); Bicubic / bicubic_eval, its static-index form
-//   (the warp floor K5). Replaces the TPU's shared tile core
+//   the semantics of ops/warp.py::bicubic_sample: keys_weights (K1, K3, K5),
+//   tap_origin and Sampler (K1, K3). Replaces the TPU's shared tile core
 //   ops/pallas/tile_warp.py::warp_tile. The TPU core reads a tile's taps
 //   out of a VMEM window (fast tier) or from HBM (general tier); here every
 //   tap is read from device memory through L1, exact for any coordinate.
@@ -17,8 +16,12 @@
 //   run in parallel in no order, so every block writes a partial [K][5][5]
 //   and a second kernel adds the partials in a fixed order: no atomics, and
 //   runs repeat bit for bit.
+// * mbar_init / mbar_wait / tma_load_3d: an mbarrier in shared memory and a
+//   TMA copy of a 3-D box of a tensor map into shared memory that completes
+//   on it (K5).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,26 +41,6 @@ __device__ __forceinline__ void keys_weights(float t, float w[4]) {
   w[1] = 1.5f * t3 - 2.5f * t2 + 1.0f;
   w[2] = -1.5f * t3 + 2.0f * t2 + 0.5f * t;
   w[3] = 0.5f * t3 - 0.5f * t2;
-}
-
-struct Bicubic {
-  int64_t row[4];   // clamped tap row * W
-  int col[4];       // clamped tap column
-  float wx[4], wy[4];
-};
-
-// One channel plane [H, W] sampled at the given taps, summed in the plain
-// sampler's order (rows outer, columns inner).
-__device__ __forceinline__ float bicubic_eval(const float* __restrict__ plane,
-                                              const Bicubic& s) {
-  float out = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      out += __ldg(plane + s.row[j] + s.col[i]) * (s.wy[j] * s.wx[i]);
-  }
-  return out;
 }
 
 // This lane's share of one row: wx[k][a] += m[k] * (x/L)^a.
@@ -209,6 +192,46 @@ struct Sampler {
     return out;
   }
 };
+
+// ---- TMA and mbarriers (K5) ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// One thread: make the barrier wait for one arrival per phase.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Wait until the barrier's phase `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One thread: copy the box of `map` at (x, y, z) into dst (128-B aligned
+// shared memory) and arrive on `bar`, which completes when the box's
+// `bytes` have landed. TMA zero-fills the part of the box outside the tensor.
+__device__ __forceinline__ void tma_load_3d(float* dst, const CUtensorMap* map, uint64_t* bar,
+                                            uint32_t bytes, int x, int y, int z) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
 
 // Sum partial [BK, ntiles, 25] over tiles in order into out [BK, 8, 8]
 // (rows = y power, cols = x power, zero outside [0:5, 0:5]). Defined in

@@ -101,8 +101,11 @@ def test_hbm_peak_gbs(name, peak):
 
 @pytest.mark.parametrize("fn", [tbm.run_benchmark, tbm.kernel_roofline, tbm.warp_roofline,
                                 tbm.vpu_floor, tps.profile_stages, tps.profile_large_frame,
-                                functools.partial(tpr.device_ms, lambda: None)],
-                         ids=lambda f: getattr(f, "__name__", "device_ms"))
+                                functools.partial(tpr.device_ms, lambda: None),
+                                functools.partial(tpr.device_ms, lambda: None, cold_l2=True)],
+                         ids=["run_benchmark", "kernel_roofline", "warp_roofline", "vpu_floor",
+                              "profile_stages", "profile_large_frame", "device_ms",
+                              "device_ms_cold_l2"])
 def test_measurements_raise_without_a_card(monkeypatch, fn):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -116,7 +119,7 @@ def _keys(t):
             -1.5 * t ** 3 + 2.0 * t ** 2 + 0.5 * t, 0.5 * t ** 3 - 0.5 * t ** 2]
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 21, 70), (1, 1, 4, 37)])
+@pytest.mark.parametrize("shape", [(2, 3, 21, 70), (1, 1, 4, 37), (1, 3, 45, 135)])
 def test_warp_floor_ref_matches_jax_sampler(shape):
     """warp_floor_ref is JAX bicubic_sample on the static grid, and the
     definition sum_ij wy_i(fy) wx_j(fx) img[y+i, x+j] (float64 oracle)."""
@@ -136,6 +139,22 @@ def test_warp_floor_ref_matches_jax_sampler(shape):
     direct = sum(wy[i][:, None] * wx[j][None, :] * img64[:, :, i:i + h - 3, j:j + w - 3]
                  for i in range(4) for j in range(4))
     np.testing.assert_allclose(got.numpy(), direct, rtol=0, atol=WARP_ATOL)
+
+
+@pytest.mark.parametrize("shape,offset,tma", [((8, 3, 388, 584), 0, True),
+                                              ((1, 3, 4, 4), 0, True),
+                                              ((1, 3, 45, 135), 0, False),
+                                              ((2, 3, 37, 70), 0, False),
+                                              ((1, 3, 45, 136), 1, False),
+                                              ((1, 3, 45, 136), 4, True)])
+def test_warp_floor_uses_tma(shape, offset, tma):
+    """K5 loads by TMA only where a tensor map can describe the frame: rows
+    of a multiple of 16 bytes (W % 4 == 0) from a 16-byte aligned base; a
+    view `offset` floats into an aligned buffer moves the base."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(offset + n)
+    assert buf.data_ptr() % 16 == 0
+    assert k5.uses_tma(buf[offset:].view(shape)) == tma
 
 
 def test_warp_floor_rejects_small_frames():

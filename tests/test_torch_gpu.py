@@ -192,14 +192,30 @@ def test_align_on_cuda_matches_cpu(cuda):
         assert torch.equal(gpu.diverged.cpu(), cpu.diverged)
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 37, 70), (1, 1, 4, 4), (8, 3, 388, 584)])
+@pytest.mark.parametrize("shape", [(2, 3, 37, 70), (1, 1, 4, 4), (8, 3, 388, 584),
+                                   (1, 3, 45, 135), (16, 3, 388, 584), (1, 3, 2160, 3840)])
 def test_warp_floor(cuda, shape):
+    """K5 on both load paths (TMA where W % 4 == 0, plain loads at W = 70
+    and 135), ragged tiles and the masked edge: reruns bitwise equal."""
     img = rand(shape, 8, cuda)
     before = k5.LAUNCHES
     got = k5.warp_floor(img)
     assert k5.LAUNCHES == before + 1
     assert got.shape == (shape[0], shape[1], shape[2] - 3, shape[3] - 3)
     assert float((got - k5.warp_floor_ref(img)).abs().max()) <= WARP_TOL
+    assert bitwise_equal(got, k5.warp_floor(img))
+
+
+def test_warp_floor_misaligned_base(cuda):
+    """A frame TMA could take but for its base 4 bytes past a 16-byte
+    boundary runs the plain-load path, and agrees."""
+    n = 2 * 3 * 45 * 136
+    buf = rand((4 + n,), 9, cuda)
+    img = buf[1:1 + n].view(2, 3, 45, 136)
+    assert not k5.uses_tma(img) and k5.uses_tma(buf[4:].view(2, 3, 45, 136))
+    got = k5.warp_floor(img)
+    assert float((got - k5.warp_floor_ref(img)).abs().max()) <= WARP_TOL
+    assert bitwise_equal(got, k5.warp_floor(img))
 
 
 def test_numpy_input_runs_on_cuda_by_default(cuda):
