@@ -22,7 +22,17 @@ after:
   printed on one line;
 - `eval.profile_stages.profile_stages()`, the stage table;
 - `eval.harness` sweeps on 16 procedural 256x256 contents: five motion
-  models, and the robust losses against QUADRATIC on occluded pairs.
+  models, and the robust losses against QUADRATIC on occluded pairs;
+- the scale-out layer (`parallel/`): K1 and K3 on the row shards of the
+  flagship batch and of one 3840x2160 pair (2 and 4 shards, each against
+  its plain version; K1's sum against the whole frame's, K3's rows bit
+  for bit the whole-frame warp's), `align_sharded(tile_rows=True)` as 2
+  gloo ranks on the one card for the flagship batch and for one 3840x2160
+  pair (held
+  against the ground truth and single-card `align()`), and
+  `align_sharded` and `parallel.launch.main` as one NCCL rank (and as
+  NCCL ranks across cards, pairs x tile, where there are 2 or more); each
+  rank's K1 and K3 launch counts add into the kernels line.
 
 It prints one JSON line with every kernel (launches summed over those
 runs, CUDA-event time, device-only time from torch.profiler with the L2
@@ -52,6 +62,7 @@ EVAL_N, EVAL_SIZE = 16, 256          # procedural contents of the eval phase
 EVAL_MAE = 1e-3                      # clean pairs, every motion model
 OCCL_MAE_ROBUST = 1e-2               # occluded pairs, every robust loss
 OCCL_MAE_QUADRATIC = 0.1             # occluded pairs: QUADRATIC must exceed it
+RANK_TIMEOUT = 300.0                 # s, every multi-rank run of phase 12
 
 
 def log(msg: str) -> None:
@@ -80,6 +91,8 @@ def main() -> int:
     )
     from inverse_compositional_algorithm_tpu_torch.ops.normal_equations import grad_moments
     from inverse_compositional_algorithm_tpu_torch.ops.transforms import transform_points
+    from inverse_compositional_algorithm_tpu_torch.parallel.ranks import drive, run_launch
+    from inverse_compositional_algorithm_tpu_torch.parallel.spawn import run_ranks
     from inverse_compositional_algorithm_tpu_torch.utils.profiling import device_ms
 
     T, R = ica.TransformType, ica.RobustLoss
@@ -147,7 +160,7 @@ def main() -> int:
         entry.update(bound_ms=us / 1e3, bound_by=by)
 
     # ---- phase 3: K3 warp ----
-    def check_warp(img_p, gx, gy, what):
+    def check_warp(img_p, gx, gy, what, phase=3):
         got = k3.warp_planar(img_p, gx, gy)
         ref = k3.warp_planar_ref(img_p, gx, gy)
         again = k3.warp_planar(img_p, gx, gy)
@@ -158,7 +171,8 @@ def main() -> int:
         fin = ~torch.isnan(ref)
         err = float((got[fin] - ref[fin]).abs().max())
         require(err <= WARP_TOL, f"K3 {what}: max abs err {err} > {WARP_TOL}")
-        log(f"phase 3 K3 {what}: max abs err {err:.3g}, NaN {float(torch.isnan(ref).float().mean()):.4f}")
+        log(f"phase {phase} K3 {what}: max abs err {err:.3g}, "
+            f"NaN {float(torch.isnan(ref).float().mean()):.4f}")
         return err
 
     img = rand_images(B, H, W)
@@ -231,7 +245,7 @@ def main() -> int:
              else ica.pad_params(torch.tensor([p], device=dev)).expand(b, 8))
         return plan, ica.params_to_matrix(p, ttype).contiguous(), delta
 
-    def check_k1(args, what):
+    def check_k1(args, what, phase=5):
         """K1 against its plain version: reruns bitwise equal, NaN positions
         equal, the finite moments within KERNEL_TOL normalized."""
         got = k1.fused_iter_moments(*args)
@@ -247,7 +261,7 @@ def main() -> int:
         require(err / scale <= KERNEL_TOL, f"K1 {what}: normalized err {err / scale} > {KERNEL_TOL}")
         require(bool((got[:, :, 5:, :] == 0).all() and (got[:, :, :, 5:] == 0).all()),
                 f"K1 {what}: padding of the [8, 8] moments is not zero")
-        log(f"phase 5 K1 {what}: max abs err {err:.3g}, normalized {err / scale:.3g}, "
+        log(f"phase {phase} K1 {what}: max abs err {err:.3g}, normalized {err / scale:.3g}, "
             f"non-finite {float((~fin).float().mean()):.3f}")
         return err
 
@@ -294,12 +308,10 @@ def main() -> int:
         i1 = warp.bicubic_sample(base.expand(B, H, W, C), gx, gy)
         return i1, base.expand(B, H, W, C).contiguous(), p_gt
 
-    cx = [0.0, W - 1.0, 0.0, W - 1.0]
-    cy = [0.0, 0.0, H - 1.0, H - 1.0]
-
-    def corner_err(pa, pb, ttype):
-        ax, ay = transform_points(pa.double(), ttype, cx, cy)
-        bx, by = transform_points(pb.double(), ttype, cx, cy)
+    def corner_err(pa, pb, ttype, h=H, w=W):
+        xs, ys = ([0.0, w - 1.0, 0.0, w - 1.0], [0.0, 0.0, h - 1.0, h - 1.0])
+        ax, ay = transform_points(pa.double(), ttype, xs, ys)
+        bx, by = transform_points(pb.double(), ttype, xs, ys)
         return float(torch.hypot(ax - bx, ay - by).max())
 
     modules = {"fused_iter_moments": k1, "warp_planar": k3, "weighted_moments": k4,
@@ -321,9 +333,10 @@ def main() -> int:
     flagship = ica.AlignConfig(transform=T.HOMOGRAPHY, robust=R.CHARBONNIER, lam=0.0,
                                nscales=5, nu=0.5, delta=10)
     default = ica.AlignConfig()
-    runs = {}
+    runs, motion_of = {}, {}
     for name, cfg in [("flagship", flagship), ("default", default)]:
         i1, i2, p_gt = pairs(cfg.transform)
+        motion_of[name] = p_gt
         res, counts = window(lambda: ica.align(i1, i2, cfg))
         require(res.p.shape == (B, 8) and res.iw.shape == (B, H, W, C), f"{name}: shapes")
         require(bool(torch.isfinite(res.p).all()), f"{name}: non-finite p")
@@ -451,6 +464,121 @@ def main() -> int:
     require(all(counts[k] > 0 for k in ("fused_iter_moments", "warp_planar", "weighted_moments")),
             f"the eval sweeps did not launch K1, K3 and K4: {counts}")
     log(f"phase 11 eval launches {counts}")
+
+    # ---- phase 12: the scale-out layer ----
+    # (a) K1 and K3 as the row-tiled path runs them, on the flagship batch
+    # and on one 3840x2160 pair, in 2 and 4 row shards: K1 on each shard
+    # (Ho = H/nt, y_offset = the shard's first row) against its plain
+    # version, and the shards' sum against the whole frame's; K3 on each
+    # shard's output rows, sampling the whole source, against its plain
+    # version and, bit for bit, against the whole-frame warp's rows.
+    def check_shards(b, h, w):
+        plan, mat, delta = k1_inputs(b, h, w, T.HOMOGRAPHY, None)
+        lam = torch.linspace(5.0, 80.0, b, device=dev)
+        whole = k1.fused_iter_moments(plan.i2p, plan.tplp, mat, True, lam, h, w, R.CHARBONNIER,
+                                      True, delta)
+        pm = motion(T.HOMOGRAPHY, b, h, w)
+        whole3 = k3.warp_planar(plan.i2p, *ica.transform_grid(pm, T.HOMOGRAPHY, h, w))
+        for nt in (2, 4):
+            rows, total = h // nt, 0
+            for r in range(nt):
+                y0 = r * rows
+                what = f"row shard {r} of {nt} ({rows} rows from row {y0}) of {b}x{C}x{h}x{w}"
+                shard = (plan.i2p, plan.tplp[:, :, y0:y0 + rows].contiguous(), mat, True,
+                         lam, h, w, R.CHARBONNIER, True, delta, y0)
+                check_k1(shard, what, phase=12)
+                total = total + k1.fused_iter_moments(*shard)
+                gxr, gyr = ica.transform_grid(pm, T.HOMOGRAPHY, rows, w, y_offset=y0)
+                check_warp(plan.i2p, gxr, gyr, what, phase=12)
+                got = k3.warp_planar(plan.i2p, gxr, gyr)
+                require(torch.equal(got.view(torch.int32),
+                                    whole3[:, :, y0:y0 + rows].view(torch.int32)),
+                        f"K3 {what}: not the whole-frame warp's rows")
+            torch.cuda.synchronize()
+            scale = max(1.0, float(whole.abs().max()))
+            err = float((total - whole).abs().max()) / scale
+            require(err <= KERNEL_TOL,
+                    f"K1 {nt} row shards of {b}x{h}x{w}: sum vs whole frame {err} > {KERNEL_TOL}")
+            log(f"phase 12 K1 sum of {nt} row shards of {b}x{h}x{w} vs whole frame: "
+                f"normalized err {err:.3g}; K3 rows equal the whole-frame warp's")
+
+    check_shards(B, H, W)
+    check_shards(1, 2160, 3840)
+
+    def sharded(name, world, mesh, i1, i2, backend=None, repeats=3):
+        """align_sharded(flagship config) on `world` ranks of a pairs x tile
+        `mesh`, each rank's K1 and K3 launched and counted."""
+        cases = {name: {"entry": "align_sharded", "mesh": mesh,
+                        "kwargs": {"config": flagship, "tile_rows": mesh[1] > 1}}}
+        outs = run_ranks(drive, world, device="cuda", backend=backend, timeout_s=RANK_TIMEOUT,
+                         args={f"{name}.i1": i1.cpu().numpy(), f"{name}.i2": i2.cpu().numpy()},
+                         kwargs={"cases": cases, "repeats": repeats, "keep_images": False})
+        for o in outs:
+            got = o["launches"]
+            require(got["fused_iter_moments"] > 0 and got["warp_planar"] > 0,
+                    f"{name}: a rank did not launch K1 and K3: {got}")
+            require(o["out"][f"{name}.iw_finite"], f"{name}: non-finite Iw on a rank")
+            require(np.array_equal(o["out"][f"{name}.p"], outs[0]["out"][f"{name}.p"]),
+                    f"{name}: the ranks disagree on p")
+            for k, v in got.items():
+                launches[k] += v
+        out = outs[0]["out"]
+        return (torch.tensor(out[f"{name}.p"]), torch.tensor(out[f"{name}.diverged"]),
+                max(o["out"][f"{name}.ms"] for o in outs), [o["launches"] for o in outs])
+
+    def check_sharded(what, got, res, p_gt, h, w, world_note):
+        p, diverged, ms, counts = got
+        e_gt = corner_err(p, p_gt.cpu(), T.HOMOGRAPHY, h, w)
+        e_one = corner_err(p, res.p.cpu(), T.HOMOGRAPHY, h, w)
+        require(e_gt <= CORNER_TOL_GT, f"{what}: corner err vs ground truth {e_gt} px")
+        require(e_one <= CORNER_TOL_CPU, f"{what}: corner err vs single-card align {e_one} px")
+        require(torch.equal(diverged, res.diverged.cpu()), f"{what}: diverged flags differ")
+        log(f"phase 12 {what}: corner err vs ground truth {e_gt:.3g} px, vs single-card "
+            f"align {e_one:.3g} px, {ms:.2f} ms per call ({world_note}; {card}), launches {counts}")
+
+    # (b) Row-tiled over 2 gloo ranks that share the card: not a scaling
+    # number (two processes on one card), the path and its kernels.
+    flag, p_gt = runs["flagship"], motion_of["flagship"]
+    ms1 = cuda_ms(lambda: ica.align(flag["i1"], flag["i2"], flagship), 3)
+    log(f"phase 12 single-card align flagship {B}x{H}x{W}: {ms1:.2f} ms per call ({card})")
+    check_sharded(f"align_sharded flagship {B}x{H}x{W} tile 2",
+                  sharded("flag", 2, (1, 2), flag["i1"], flag["i2"], backend="gloo"),
+                  flag["res"], p_gt, H, W, "2 gloo ranks sharing cuda:0")
+    H4, W4 = 2160, 3840
+    base4 = pyramid.gaussian_blur(rand_images(1, H4, W4), 2.0)
+    p4 = motion(T.HOMOGRAPHY, 1, H4, W4)
+    i1_4 = warp.bicubic_sample(base4, *ica.transform_grid(p4, T.HOMOGRAPHY, H4, W4))
+    res4, counts = window(lambda: ica.align(i1_4, base4, flagship))
+    ms4 = cuda_ms(lambda: ica.align(i1_4, base4, flagship), 3)
+    log(f"phase 12 single-card align 1x{H4}x{W4}: corner err vs ground truth "
+        f"{corner_err(res4.p, p4, T.HOMOGRAPHY, H4, W4):.3g} px, {ms4:.2f} ms per call "
+        f"({card}), launches {counts}")
+    check_sharded(f"align_sharded 1x{H4}x{W4} tile 2",
+                  sharded("4k", 2, (1, 2), i1_4, base4, backend="gloo"), res4, p4, H4, W4,
+                  "2 gloo ranks sharing cuda:0")
+    del base4, i1_4
+
+    # (c) NCCL: one rank (align_sharded and the launcher), then one rank per
+    # card, pairs x tile, where the machine has 2 cards or more.
+    check_sharded(f"align_sharded flagship {B}x{H}x{W} pairs 1",
+                  sharded("one", 1, (1, 1), flag["i1"], flag["i2"]), flag["res"], p_gt, H, W,
+                  "1 NCCL rank")
+    outs = run_ranks(run_launch, 1, device="cuda", timeout_s=RANK_TIMEOUT,
+                     kwargs={"argv": ["--batch-per-host", str(B), "--repeats", "3"]})
+    rec, got = outs[0]["out"], outs[0]["launches"]
+    require(rec["errors_finite"] and rec["pairs_per_sec_global"] > 0 and rec["card"] == card
+            and rec["max_corner_err_px"] <= CORNER_TOL_GT, f"launch: {rec}")
+    require(got["fused_iter_moments"] > 0 and got["warp_planar"] > 0,
+            f"launch did not launch K1 and K3: {got}")
+    for k, v in got.items():
+        launches[k] += v
+    print("launch_record " + json.dumps(rec), flush=True)
+    ncards = torch.cuda.device_count()
+    if ncards >= 2:
+        n = min(4, ncards - ncards % 2)
+        check_sharded(f"align_sharded flagship {B}x{H}x{W} pairs {n // 2} x tile 2",
+                      sharded("nccl", n, (n // 2, 2), flag["i1"], flag["i2"]), flag["res"], p_gt,
+                      H, W, f"{n} NCCL ranks, one per card")
 
     for k in kernels:
         kernels[k]["launches"] = launches[k]

@@ -88,7 +88,16 @@ def _align_impl(i1: torch.Tensor, i2: torch.Tensor, p0: torch.Tensor,
         divergence_guard=config.divergence_guard,
         delta_cap=config.delta_cap,
     )
-    gx, gy = transform_grid(state.p, config.transform, i2.shape[1], i2.shape[2])
+    return _final_warp(state, i1, i2, config)
+
+
+def _final_warp(state, i1: torch.Tensor, i2: torch.Tensor, config: AlignConfig,
+                y_offset: int = 0) -> AlignResult:
+    """The result of a solve: I2 warped (K3 on CUDA) at the solved motion on
+    the template rows i1 covers, rows y_offset .. y_offset + i1.shape[1] - 1
+    of the frame (all of them unless the rows are tiled)."""
+    gx, gy = transform_grid(state.p, config.transform, i1.shape[1], i2.shape[2],
+                            y_offset=y_offset)
     iw, valid = warp_image_fast(i2, i2.permute(0, 3, 1, 2).contiguous(), gx, gy,
                                 config.delta)
     fill = float("nan") if config.nanifoutside else 0.0

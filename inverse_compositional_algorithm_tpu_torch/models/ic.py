@@ -43,11 +43,12 @@ from ..ops.transforms import (
     pad_params,
     param_preconditioner,
     params_to_matrix,
+    transform_grid,
     transform_points,
 )
-from ..ops.warp import warp_image
+from ..ops.warp import bicubic_sample, domain_mask
 
-__all__ = ["ICState", "ic_solve", "effective_delta"]
+__all__ = ["ICState", "ic_solve", "iterate", "effective_delta"]
 
 
 @dataclass
@@ -97,42 +98,75 @@ def _masked_residual(iw: torch.Tensor, valid: torch.Tensor, i1: torch.Tensor,
     return torch.where(valid[..., None], iw, torch.zeros_like(iw)) - i1
 
 
+def _identity(t):
+    return t
+
+
 def _plain_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside,
-                  delta, scale, hessian_chunk):
-    """CPU path: system(p, lam) -> (H [B,8,8], b [B,8]) by the plain op chain."""
-    _, hh, ww, _ = i1.shape
-    jx, jy = jacobian_fields(ttype, hh, ww, dtype=i1.dtype, scale=scale,
-                             device=i1.device)
+                  delta, scale, hessian_chunk, y_offset: int = 0, reduce=None):
+    """CPU path: system(p, lam) -> (H [B,8,8], b [B,8]) by the plain op chain.
+
+    i1 and its gradient maps may be the band of rows y_offset .. of the
+    frame i2 (the row-tiled solver, `parallel.tiled`): the grid and the
+    Jacobians then take global rows, and `reduce` sums H and b over the
+    tile group in one all-reduce (JAX `parallel/tiled.py:227-248`)."""
+    _, h_loc, ww, _ = i1.shape
+    hh = i2.shape[1]
+    reduce = reduce or _identity
+    jx, jy = jacobian_fields(ttype, h_loc, ww, dtype=i1.dtype, scale=scale,
+                             y_offset=y_offset, device=i1.device)
     is_robust = robust is not RobustLoss.QUADRATIC
-    h_quad = None if is_robust else hessian(gxx, gxy, gyy, jx, jy, chunk=hessian_chunk)
+    h_quad = (None if is_robust
+              else reduce(hessian(gxx, gxy, gyy, jx, jy, chunk=hessian_chunk)))
 
     def system(p, lam):
-        iw, valid = warp_image(i2, p, ttype, delta)
-        di = _masked_residual(iw, valid, i1, nanifoutside)
-        rho = robust_weights(di, lam[:, None, None], robust) if is_robust else None
-        h = (hessian(gxx, gxy, gyy, jx, jy, weights=rho, chunk=hessian_chunk)
-             if is_robust else h_quad)
+        gx, gy = transform_grid(p, ttype, h_loc, ww, y_offset=y_offset)
+        iw = bicubic_sample(i2, gx, gy)
+        di = _masked_residual(iw, domain_mask(gx, gy, hh, ww, delta), i1, nanifoutside)
         u, v = residual_moments(ix, iy, di)
-        return h, rhs(u, v, jx, jy, weights=rho)
+        if not is_robust:
+            return h_quad, reduce(rhs(u, v, jx, jy))
+        rho = robust_weights(di, lam[:, None, None], robust)
+        h = hessian(gxx, gxy, gyy, jx, jy, weights=rho, chunk=hessian_chunk)
+        hb = reduce(torch.cat([h.flatten(1), rhs(u, v, jx, jy, weights=rho)], dim=1))
+        return hb[:, :64].reshape(h.shape), hb[:, 64:]
 
     return system
 
 
-def _fused_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside, delta):
+def _fused_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside, delta,
+                  scale=None, hessian_chunk: int = 16384, y_offset: int = 0, reduce=None):
     """CUDA path: system(p, lam) -> (H, b) in the preconditioned metric, from
     one fused-iteration kernel launch, which forms the sampling coordinates
     from the motion matrix itself (the quadratic Hessian comes from the
     moment kernel, once). On CPU tensors the same code runs the kernels'
-    plain versions."""
-    _, hh, ww, _ = i1.shape
+    plain versions.
+
+    For a band of rows y_offset .. of the frame i2 (`parallel.tiled`), K1
+    takes the band's global rows and `reduce` sums its [B, K, 8, 8] moments
+    over the tile group (JAX `parallel/tiled.py:208-226`). The moment kernel
+    takes no row offset, so a band's quadratic Hessian is the plain
+    `hessian` on global-row Jacobians (preconditioned by `scale`), reduced
+    once."""
+    _, h_loc, ww, _ = i1.shape
+    hh = i2.shape[1]
+    tiled = y_offset != 0 or reduce is not None
+    reduce = reduce or _identity
     is_robust = robust is not RobustLoss.QUADRATIC
     plan = plan_fused_iter(i1, i2, ix, iy, gxx, gxy, gyy, robust=is_robust)
-    h_quad = None if is_robust else fused_hessian(gxx, gxy, gyy, ttype=ttype)
+    h_quad = None
+    if not is_robust and tiled:
+        jx, jy = jacobian_fields(ttype, h_loc, ww, dtype=i1.dtype, scale=scale,
+                                 y_offset=y_offset, device=i1.device)
+        h_quad = reduce(hessian(gxx, gxy, gyy, jx, jy, chunk=hessian_chunk))
+    elif not is_robust:
+        h_quad = fused_hessian(gxx, gxy, gyy, ttype=ttype)
     projective = ttype is TransformType.HOMOGRAPHY
 
     def system(p, lam):
-        m = fused_iter_moments(plan.i2p, plan.tplp, params_to_matrix(p, ttype), projective,
-                               lam, hh, ww, robust if is_robust else None, nanifoutside, delta)
+        m = reduce(fused_iter_moments(plan.i2p, plan.tplp, params_to_matrix(p, ttype), projective,
+                                      lam, hh, ww, robust if is_robust else None, nanifoutside,
+                                      delta, y_offset=y_offset))
         if is_robust:
             return (_assemble_h(m[:, :3], ttype, hh, ww),
                     _assemble_b(m[:, 3:], ttype, hh, ww))
@@ -183,12 +217,11 @@ def ic_solve(
     The loop's condition reads `active` on the host: one device sync per
     iteration (the JAX package's lax.while_loop has none).
     """
-    bsz, hh, ww, _ = i1.shape
+    _, hh, ww, _ = i1.shape
     dt = i1.dtype
     fused = _build.use_kernel(i1, i2, p0)
     if fused and not (dt == torch.float32 and precondition):
         raise ValueError("the CUDA path takes float32 images and precondition=True")
-    is_robust = robust is not RobustLoss.QUADRATIC
     if delta_cap:
         delta = effective_delta(delta, hh, ww)
 
@@ -200,17 +233,33 @@ def ic_solve(
     gxx, gxy, gyy = grad_moments(ix, iy)
 
     scale = param_preconditioner(ttype, hh, ww) if precondition else None
-    live = np.zeros(cts.NPARAMS_MAX, np.float64)
-    live[: nparams(ttype)] = 1.0
     if fused:
         system = _fused_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust,
                                nanifoutside, delta)
     else:
         system = _plain_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust,
                                nanifoutside, delta, scale, hessian_chunk)
+    return iterate(system, p0.to(dt), ttype, hh, ww, tol=tol, max_iter=max_iter, robust=robust,
+                   lam=lam, scale=scale, divergence_guard=divergence_guard, verbose=verbose,
+                   collect_trace=collect_trace)
 
+
+def iterate(system, p0: torch.Tensor, ttype: TransformType, hh: int, ww: int, *, tol: float,
+            max_iter: int, robust: RobustLoss, lam: float, scale, divergence_guard: bool,
+            verbose: bool = False, collect_trace: bool = False, agree=None):
+    """The Gauss-Newton loop of `ic_solve` over `system(p, lam) -> (H, b)`:
+    the per-pair lambda anneal, the solve, the compose and the divergence
+    guard, until no pair is active. `hh`, `ww` are the frame's dims (the
+    guard's probes); `agree(still) -> still`, when given, makes the ranks of
+    a row-tiled solve take one decision on which pairs go on
+    (`parallel.tiled`)."""
+    bsz = p0.shape[0]
+    dt = p0.dtype
+    is_robust = robust is not RobustLoss.QUADRATIC
+    live = np.zeros(cts.NPARAMS_MAX, np.float64)
+    live[: nparams(ttype)] = 1.0
     lam0 = lam if lam > 0 else cts.LAMBDA_0
-    p0p = pad_params(p0.to(dt))
+    p0p = pad_params(p0)
 
     def anneal(lam_cur, act):
         if not is_robust or lam > 0:
@@ -239,13 +288,15 @@ def ic_solve(
         still = act & (err > tol) & ~bad
         if s.it + 1 >= max_iter:
             still = torch.zeros_like(still)
+        if agree is not None:
+            still = agree(still)
         if verbose:
             print(f"iter {s.it}: |Dp|={error.tolist()} p={p.tolist()} "
                   f"lambda={lam_next.tolist()}")
         return ICState(p=p, error=error, lam=lam_next, it=s.it + 1, niters=niters,
                        active=still, diverged=s.diverged | bad)
 
-    dev = i1.device
+    dev = p0.device
     state = ICState(
         p=p0p,
         error=torch.full((bsz,), 1e10, dtype=dt, device=dev),

@@ -136,11 +136,24 @@ def check_operand(t, name: str, shape: tuple) -> None:
 
 
 def launch(name: str, *args) -> None:
-    """Call C entry `name` on the current CUDA stream; raise on a launch error."""
+    """Call C entry `name` on the operands' device and its current stream;
+    raise on a launch error.
+
+    Tensor arguments are passed as their data pointers, and the first one
+    names the device: the call runs under `torch.cuda.device` of it, so a
+    kernel whose operands lie on cuda:1 launches there even while cuda:0 is
+    the current device (the C entries launch on the current device).
+    Operands on more than one device raise."""
     import torch
 
+    devs = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: kernel operands must all lie on one device, got {devs}")
+    (dev,) = devs
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     lib = load_library()
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.ica_error_string(err).decode()
         raise RuntimeError(f"{name}: kernel launch failed: cudaError {err} ({msg})")

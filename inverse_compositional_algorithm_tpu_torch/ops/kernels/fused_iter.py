@@ -137,9 +137,8 @@ def fused_iter_moments(i2p, tplp, mat, projective: bool, lam, height: int, width
     nbands = -(-ho // K1_ROWS)
     partial = torch.empty((b, nk, nbands, 25), dtype=torch.float32, device=i2p.device)
     out = torch.empty((b, nk, 8, 8), dtype=torch.float32, device=i2p.device)
-    _build.launch("ica_fused_iter_moments", i2p.data_ptr(), tplp.data_ptr(), mat.data_ptr(),
-                  lam.data_ptr(), partial.data_ptr(), out.data_ptr(), b, c, npl, h, w, ho, wo,
-                  int(projective), 0 if robust is None else robust.value, int(nanifoutside),
-                  int(delta), int(y_offset), 1.0 / float(max(height, width)))
+    _build.launch("ica_fused_iter_moments", i2p, tplp, mat, lam, partial, out, b, c, npl, h, w,
+                  ho, wo, int(projective), 0 if robust is None else robust.value,
+                  int(nanifoutside), int(delta), int(y_offset), 1.0 / float(max(height, width)))
     LAUNCHES += 1
     return out

@@ -87,8 +87,8 @@ def weighted_moments(maps: torch.Tensor) -> torch.Tensor:
     partial = torch.empty((b, k, ntiles, _DEG * _DEG), dtype=torch.float32,
                           device=maps.device)
     out = torch.empty((b, k, _PAD, _PAD), dtype=torch.float32, device=maps.device)
-    _build.launch("ica_weighted_moments", maps.data_ptr(), partial.data_ptr(),
-                  out.data_ptr(), b, k, h, w, 1.0 / float(max(h, w)))
+    _build.launch("ica_weighted_moments", maps, partial, out, b, k, h, w,
+                  1.0 / float(max(h, w)))
     LAUNCHES += 1
     return out
 

@@ -42,8 +42,7 @@ def warp_planar(img_p: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor) -> torc
     if c * max(h * w, ho * wo) >= 2 ** 31:
         raise ValueError("a pair's planes are too large for the kernel's 32-bit offsets")
     out = torch.empty((b, c, ho, wo), dtype=torch.float32, device=img_p.device)
-    _build.launch("ica_warp_planar", img_p.data_ptr(), gx.data_ptr(), gy.data_ptr(),
-                  out.data_ptr(), b, c, h, w, ho, wo)
+    _build.launch("ica_warp_planar", img_p, gx, gy, out, b, c, h, w, ho, wo)
     LAUNCHES += 1
     return out
 

@@ -62,7 +62,6 @@ def warp_floor(img_p: torch.Tensor) -> torch.Tensor:
     if h * w >= 2 ** 31:
         raise ValueError("a plane is too large for the kernel's 32-bit offsets")
     out = torch.empty((b, c, h - 3, w - 3), dtype=torch.float32, device=img_p.device)
-    _build.launch("ica_warp_floor", img_p.data_ptr(), out.data_ptr(), b, c, h, w,
-                  int(uses_tma(img_p)))
+    _build.launch("ica_warp_floor", img_p, out, b, c, h, w, int(uses_tma(img_p)))
     LAUNCHES += 1
     return out

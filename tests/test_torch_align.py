@@ -156,8 +156,8 @@ def test_numpy_input_needs_a_device(monkeypatch):
 
 
 def test_port_never_imports_jax():
-    """Importing the port with its entry points and running a small align
-    leaves jax unimported."""
+    """Importing the port with its entry points (parallel/ included) and
+    running a small align leaves jax and the JAX package unimported."""
     code = (
         "import sys, numpy as np\n"
         "import inverse_compositional_algorithm_tpu_torch as ica\n"
@@ -165,12 +165,16 @@ def test_port_never_imports_jax():
         "from inverse_compositional_algorithm_tpu_torch.eval import (\n"
         "    benchmarks, harness, plots, profile_stages, run_eval)\n"
         "from inverse_compositional_algorithm_tpu_torch.ops.kernels import warp_floor\n"
+        "from inverse_compositional_algorithm_tpu_torch.parallel import (\n"
+        "    launch, mesh, ranks, scaling, sharded, spawn, tiled)\n"
         "from inverse_compositional_algorithm_tpu_torch.utils import (\n"
         "    imageio, profiling, validation)\n"
         "img = np.random.default_rng(0).uniform(0, 255, (24, 32, 3))\n"
         "r = ica.align(img, img, ica.AlignConfig(nscales=1, delta=2), device='cpu')\n"
         "assert r.p.shape == (8,), r.p.shape\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert not any(m.startswith('inverse_compositional_algorithm_tpu.')\n"
+        "               for m in sys.modules), 'the JAX package was imported'\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

@@ -1,6 +1,8 @@
 """The port's CUDA kernels (K1 fused iteration, K3 warp, K4 moments, K5 warp
-floor) against their plain PyTorch versions, and its entry points (align,
-the benchmark, the eval harness), on a CUDA device.
+floor) against their plain PyTorch versions (K1 and K3 also on the row
+shards of the row-tiled solver), and its entry points (align, the
+benchmark, the eval harness, the row-tiled solver on two gloo ranks that
+share the card), on a CUDA device.
 
 Every test needs a CUDA device and nvcc, and skips without them. The file
 imports nothing of JAX, so it runs where only PyTorch is installed:
@@ -150,6 +152,117 @@ def test_fused_iter_motions_and_shapes(cuda, name, b, h, w):
     assert bool(fin.all()) == (name != "diverged")
     normalized_close(got[fin], ref[fin])
     assert bitwise_equal(got, k1.fused_iter_moments(*args))
+
+
+@pytest.mark.parametrize("nt", [2, 4])
+def test_fused_iter_row_shards(cuda, nt):
+    """K1 on row shards (Ho = H/nt, y_offset = the shard's first row), as
+    the row-tiled solver runs it: each shard against its plain version, and
+    the shards' moments sum to the whole frame's."""
+    b, h, w, delta = 2, 48, 72, 5
+    plan = k1_plan(b, h, w, delta, cuda)
+    lam = torch.tensor([5.0, 17.0], device=cuda)
+    mat, projective = motion(*MOTIONS["homography"], b, cuda)
+    rows = h // nt
+    total = 0
+    for r in range(nt):
+        tplp = plan.tplp[:, :, r * rows:(r + 1) * rows].contiguous()
+        args = (plan.i2p, tplp, mat, projective, lam, h, w, R.CHARBONNIER, True, delta)
+        got = k1.fused_iter_moments(*args, y_offset=r * rows)
+        normalized_close(got, k1.fused_iter_moments_ref(*args, y_offset=r * rows))
+        assert bitwise_equal(got, k1.fused_iter_moments(*args, y_offset=r * rows))
+        total = total + got
+    whole = k1.fused_iter_moments(plan.i2p, plan.tplp, mat, projective, lam, h, w,
+                                  R.CHARBONNIER, True, delta)
+    normalized_close(total, whole)
+
+
+def test_warp_planar_local_rows(cuda):
+    """K3 on one rank's rows (coordinates with the global y_offset, the
+    whole frame as source) gives the whole-frame warp's rows, bit for bit."""
+    b, h, w, rows = 2, 64, 200, 16
+    img = rand((b, 3, h, w), 0, cuda)
+    ttype, p = MOTIONS["homography"]
+    pp = ica.pad_params(torch.tensor(p, device=cuda)).expand(b, 8)
+    whole = k3.warp_planar(img, *ica.transform_grid(pp, ttype, h, w))
+    for y0 in range(0, h, rows):
+        got = k3.warp_planar(img, *ica.transform_grid(pp, ttype, rows, w, y_offset=y0))
+        assert bitwise_equal(got, whole[:, :, y0:y0 + rows])
+
+
+def test_tiled_ic_solve_two_gloo_ranks_on_one_card(cuda):
+    """tiled_ic_solve as 2 gloo ranks sharing the card (K1 on row shards,
+    the moments all-reduced) against single-card ic_solve: within 1e-2 px
+    of corner displacement (float32 sums in another order), equal flags,
+    and every rank launched K1."""
+    from inverse_compositional_algorithm_tpu_torch.parallel.ranks import drive
+    from inverse_compositional_algorithm_tpu_torch.parallel.spawn import run_ranks
+
+    base = ica.ops.pyramid.gaussian_blur(rand((1, 96, 128, 3), 7, "cpu"), 2.0)
+    ttype = T.HOMOGRAPHY
+    pp = ica.pad_params(torch.tensor([[0.01, -0.005, 1.5, 0.008, -0.01, -1.0, 5e-5, -3e-5]]))
+    i1 = ica.ops.warp.bicubic_sample(base, *ica.transform_grid(pp, ttype, 96, 128))
+    i1, i2 = torch.cat([i1, base]), torch.cat([base, base])
+    kw = dict(ttype=ttype, delta=8, robust=R.CHARBONNIER)
+    cases = {"s": {"entry": "tiled_ic_solve", "mesh": (1, 2), "kwargs": kw}}
+    outs = run_ranks(drive, 2, device="cuda", backend="gloo", timeout_s=240,
+                     args={"s.i1": i1.numpy(), "s.i2": i2.numpy()}, kwargs={"cases": cases})
+    kw.pop("ttype")
+    want = ica.ic_solve(i1.to(cuda), i2.to(cuda), torch.zeros((2, 8), device=cuda), ttype, **kw)
+    xs, ys = [0.0, 127.0, 0.0, 127.0], [0.0, 0.0, 95.0, 95.0]
+    bx, by = ica.ops.transforms.transform_points(want.p.cpu().double(), ttype, xs, ys)
+    for o in outs:
+        assert o["launches"]["fused_iter_moments"] > 0
+        got = torch.tensor(o["out"]["s.p"]).double()
+        ax, ay = ica.ops.transforms.transform_points(got, ttype, xs, ys)
+        assert float(torch.hypot(ax - bx, ay - by).max()) <= 1e-2
+        np.testing.assert_array_equal(o["out"]["s.diverged"], want.diverged.cpu().numpy())
+        np.testing.assert_array_equal(o["out"]["s.p"], outs[0]["out"]["s.p"])
+
+
+def test_launch_runs_on_the_operands_device(cuda):
+    """Tensors on cuda:1 while cuda:0 is the current device: K1 and K3
+    launch on cuda:1 and give cuda:0's results."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    b, h, w, delta = 2, 49, 73, 4
+    plan = k1_plan(b, h, w, delta, cuda)
+    lam = torch.tensor([5.0, 17.0], device=cuda)
+    mat, projective = motion(*MOTIONS["euclidean"], b, cuda)
+    gx, gy = grid(*MOTIONS["euclidean"], b, h, w, cuda)
+    args = (plan.i2p, plan.tplp, mat, projective, lam, h, w, R.CHARBONNIER, True, delta)
+    want = (k1.fused_iter_moments(*args), k3.warp_planar(plan.i2p, gx, gy))
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        got = (k1.fused_iter_moments(*(a.to(other) if isinstance(a, torch.Tensor) else a
+                                       for a in args)),
+               k3.warp_planar(plan.i2p.to(other), gx.to(other), gy.to(other)))
+        torch.cuda.synchronize(other)
+    for g, wnt in zip(got, want):
+        assert g.device == other
+        assert bitwise_equal(g.cpu(), wnt.cpu())
+
+
+def test_launch_raises_on_operands_of_two_cards(cuda):
+    """Operands spread over cuda:0 and cuda:1 raise before any launch: a
+    kernel never runs on one card with another card's pointers."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    b, h, w = 2, 49, 73
+    img = rand((b, 3, h, w), 0, cuda)
+    gx, gy = grid(*MOTIONS["euclidean"], b, h, w, cuda)
+    other = torch.device("cuda", 1)
+    before = k3.LAUNCHES
+    with pytest.raises(ValueError, match="one device"):
+        k3.warp_planar(img, gx.to(other), gy.to(other))
+    plan = k1_plan(b, h, w, 4, cuda)
+    mat, projective = motion(*MOTIONS["euclidean"], b, cuda)
+    lam = torch.tensor([5.0, 17.0], device=cuda)
+    launched = k1.LAUNCHES
+    with pytest.raises(ValueError, match="one device"):
+        k1.fused_iter_moments(plan.i2p, plan.tplp, mat.to(other), projective, lam, h, w,
+                              R.CHARBONNIER, True, 4)
+    assert (k3.LAUNCHES, k1.LAUNCHES) == (before, launched)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
