@@ -5,14 +5,14 @@
 
 Needs one CUDA device and nvcc. It builds the kernels from the sources in
 this checkout (failing on a register spill in the compiler's report),
-holds each kernel (K1 fused iteration, K3 warp, K4 moments, K5 warp floor)
-against its plain PyTorch version at the flagship's shapes, and K1 and K3
-also on a 69-degree rotation and a diverged homography (NaN positions
-equal, reruns bitwise equal; K1 too on ragged and coarse frames and at
-batch 1 and 16; K5 on both of its load paths, TMA and plain, at ragged,
-gray, minimal and 4K frames), then drives the port's entry points, each
-with the kernels' launch counts set to 0 just before it and read just
-after:
+holds each kernel (K1 fused iteration, K3 warp, K4 moments, K5 warp
+floor, and K1a, K1's ablation variants) against its plain PyTorch version
+at the flagship's shapes, and K1 and K3 also on a 69-degree rotation and
+a diverged homography (NaN positions equal, reruns bitwise equal; K1 too
+on ragged and coarse frames and at batch 1 and 16; K5 on both of its
+load paths, TMA and plain, at ragged, gray, minimal and 4K frames), then
+drives the port's entry points, each with the kernels' launch counts set
+to 0 just before it and read just after:
 
 - `align()` end to end on 8 synthetic 584x388 RGB pairs with known motion
   (HOMOGRAPHY + CHARBONNIER, lambda annealed 80 -> 5, 5 scales, then the
@@ -32,7 +32,15 @@ after:
   against the ground truth and single-card `align()`), and
   `align_sharded` and `parallel.launch.main` as one NCCL rank (and as
   NCCL ranks across cards, pairs x tile, where there are 2 or more); each
-  rank's K1 and K3 launch counts add into the kernels line.
+  rank's K1 and K3 launch counts add into the kernels line;
+- K1's ablation variants (K1a, csrc/fused_iter_ablate.cu) against the
+  production K1 on 2 flagship pairs at delta 10 (full, nomask and nofold
+  bit for bit; the others finite, repeatable and different), then
+  `eval.attr_bench.run()`, the cost attribution at batch 16, printed on
+  an `attr_bench {...}` line; the stabilization walkthrough
+  (examples/stabilize_torch.py) against its ground-truth jitter; and the
+  reference-signature shims of `models.layers` (K1, K3, and K4 through
+  the quadratic ones) against the ground truth.
 
 It prints one JSON line with every kernel (launches summed over those
 runs, CUDA-event time, device-only time from torch.profiler with the L2
@@ -84,8 +92,9 @@ def main() -> int:
     import inverse_compositional_algorithm_tpu_torch as ica
     from inverse_compositional_algorithm_tpu_torch.ops import gradients, pyramid, warp
     from inverse_compositional_algorithm_tpu_torch.eval import (
-        benchmarks, harness, profile_stages, run_eval,
+        attr_bench, benchmarks, harness, profile_stages, run_eval,
     )
+    from inverse_compositional_algorithm_tpu_torch.models import layers
     from inverse_compositional_algorithm_tpu_torch.ops.kernels import (
         _build, fused_iter as k1, normal_eq as k4, warp as k3, warp_floor as k5,
     )
@@ -314,18 +323,20 @@ def main() -> int:
         bx, by = transform_points(pb.double(), ttype, xs, ys)
         return float(torch.hypot(ax - bx, ay - by).max())
 
-    modules = {"fused_iter_moments": k1, "warp_planar": k3, "weighted_moments": k4,
-               "warp_floor": k5}
-    launches = {k: 0 for k in modules}
+    # Each kernel's launch count: the wrapper's module and its counter.
+    counters = {"fused_iter_moments": (k1, "LAUNCHES"), "warp_planar": (k3, "LAUNCHES"),
+                "weighted_moments": (k4, "LAUNCHES"), "warp_floor": (k5, "LAUNCHES"),
+                "fused_iter_ablate": (k1, "ABLATE_LAUNCHES")}
+    launches = {k: 0 for k in counters}
 
     def window(fn):
         """Run an entry point with every launch count set to 0 just before
         and read just after; the counts add into `launches`."""
-        for m in modules.values():
-            m.LAUNCHES = 0
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
         out = fn()
         torch.cuda.synchronize()
-        counts = {k: m.LAUNCHES for k, m in modules.items()}
+        counts = {k: getattr(m, attr) for k, (m, attr) in counters.items()}
         for k, v in counts.items():
             launches[k] += v
         return out, counts
@@ -580,10 +591,111 @@ def main() -> int:
                       sharded("nccl", n, (n // 2, 2), flag["i1"], flag["i2"]), flag["res"], p_gt,
                       H, W, f"{n} NCCL ranks, one per card")
 
+    # ---- phase 13: K1's ablation variants, attr_bench, the walkthrough, the shims ----
+    # (a) The variants against the production K1 on 2 flagship pairs at
+    # delta 10 (comparison launches, outside every window).
+    def bench_args(b):
+        i1b, i2b, p0b, _, _, ixb, iyb, g3b = benchmarks.hot_state(b, H, W, T.HOMOGRAPHY)
+        plan = k1.plan_fused_iter(i1b, i2b, ixb, iyb, *g3b, robust=True)
+        return (plan.i2p, plan.tplp, ica.params_to_matrix(p0b, T.HOMOGRAPHY).contiguous(),
+                True, torch.full((b,), 5.0, device=dev), H, W, R.CHARBONNIER, True, 10)
+
+    args = bench_args(2)
+    prod = k1.fused_iter_moments(*args)
+    for name, hop in attr_bench.HOPPER.items():
+        if hop is None:
+            log(f"phase 13 K1a {name!r}: not applicable")
+            continue
+        got = k1.fused_iter_moments_ablate(*args, ablate=name)
+        again = k1.fused_iter_moments_ablate(*args, ablate=name)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                f"K1a {name!r}: reruns differ")
+        if hop in ("", "nomask", "nofold"):
+            require(torch.equal(got.view(torch.int32), prod.view(torch.int32)),
+                    f"K1a {name!r}: not the production K1's moments bit for bit")
+        else:
+            require(bool(torch.isfinite(got).all()), f"K1a {name!r}: non-finite moments")
+            require(not torch.equal(got, prod), f"K1a {name!r}: equal to the full variant")
+        log(f"phase 13 K1a {name!r} (Hopper {hop!r}) on 2x{H}x{W}: max |diff| from production "
+            f"K1 {float((got - prod).abs().max()):.4g}")
+    # (b) The full variant at the bench's batch 16 against the plain K1 and
+    # the production K1, then attr_bench.run() as a user runs it.
+    args = bench_args(16)
+    full = k1.fused_iter_moments_ablate(*args, ablate="")
+    ref = k1.fused_iter_moments_ref(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(full.view(torch.int32), k1.fused_iter_moments(*args).view(torch.int32)),
+            "K1a full at batch 16: not the production K1's moments bit for bit")
+    err1a = float((full - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    require(err1a / scale <= KERNEL_TOL, f"K1a full: normalized err {err1a / scale}")
+    log(f"phase 13 K1a full 16x{H}x{W} vs plain K1: max abs err {err1a:.3g}, "
+        f"normalized {err1a / scale:.3g}")
+    t0 = time.perf_counter()
+    rows, counts = window(attr_bench.run)
+    print("attr_bench " + json.dumps(rows), flush=True)
+    require(counts["fused_iter_ablate"] > 0 and counts["warp_floor"] > 0,
+            f"attr_bench did not launch K1a and K5: {counts}")
+    for name in attr_bench.VARIANTS:
+        row = rows[name or "(full)"]
+        require(("not_applicable" in row) == (attr_bench.HOPPER[name] is None)
+                and ("not_applicable" in row or min(row["device_ms"], row["cold_device_ms"]) > 0),
+                f"attr_bench row {name!r}: {row}")
+    log(f"phase 13 attr_bench: {time.perf_counter() - t0:.1f} s, launches {counts}")
+    kernels["fused_iter_ablate"] = dict(
+        route="cuda",
+        source="inverse_compositional_algorithm_tpu_torch/ops/kernels/csrc/fused_iter_ablate.cu",
+        replaces="inverse_compositional_algorithm_tpu/ops/pallas/fused_iter.py:117",
+        max_abs_err=err1a,      # the full variant, the one with a plain version
+        ms=cuda_ms(lambda: k1.fused_iter_moments_ablate(*args, ablate=""), 50),
+        device_ms=rows["(full)"]["device_ms"], cold_device_ms=rows["(full)"]["cold_device_ms"],
+        plain_ms=cuda_ms(lambda: k1.fused_iter_moments_ref(*args), 10),
+        library_ms=None)        # as K1: no PyTorch call fuses this chain
+    bound(kernels["fused_iter_ablate"], nbytes(*args[:3], args[4]) + 16 * 5 * 64 * 4,
+          16 * H * W * benchmarks.fused_iter_flops_per_pixel(C))
+    del args, full, ref
+    # (c) The stabilization walkthrough, as a user runs it on the card.
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "stabilize_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "examples", "stabilize_torch.py"))
+    stab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stab)
+    est, counts = window(lambda: stab.main(device="cuda"))
+    _, jitter = stab.make_sequence(device="cpu")
+    e = T.EUCLIDEAN
+    err = corner_err(ica.pad_params(torch.tensor(est, device=dev), e),
+                     ica.pad_params(torch.tensor(jitter[:, :3], device=dev), e), e, 288, 384)
+    require(err <= CORNER_TOL_CPU, f"stabilize_torch: corner err vs the jitter {err} px")
+    require(counts["fused_iter_moments"] > 0 and counts["warp_planar"] > 0,
+            f"stabilize_torch did not launch K1 and K3: {counts}")
+    log(f"phase 13 stabilize_torch: corner err vs ground-truth jitter {err:.3g} px, "
+        f"launches {counts}")
+    # (d) The reference-signature shims on 8 flagship-size pairs a fraction
+    # of a pixel apart (single-scale shims need no pyramid), numpy input.
+    p_gt = motion(T.EUCLIDEAN, B, H, W) * 0.25
+    i1s = warp.bicubic_sample(base.expand(B, H, W, C), *ica.transform_grid(p_gt, e, H, W))
+    i1n, i2n = i1s.cpu().numpy(), base.expand(B, H, W, C).cpu().numpy()
+    for shim, quadratic in [(layers.InverseCompositional(), True),
+                            (layers.RobustInverseCompositional(), False),
+                            (layers.PyramidalInverseCompositional(), True)]:
+        (p, _, _, iw), counts = window(lambda: shim((i1n, i2n)))
+        what = type(shim).__name__
+        require(p.is_cuda and p.shape == (B, 3) and iw.shape == (B, H, W, C), f"{what}: shapes")
+        err = corner_err(ica.pad_params(p, e), p_gt, e)
+        require(err <= CORNER_TOL_GT, f"{what}: corner err vs ground truth {err} px")
+        require(counts["fused_iter_moments"] > 0 and counts["warp_planar"] > 0
+                and (counts["weighted_moments"] > 0) == quadratic,
+                f"{what} did not launch K1, K3 (and K4 when quadratic): {counts}")
+        log(f"phase 13 layers.{what}: corner err vs ground truth {err:.3g} px, launches {counts}")
+
     for k in kernels:
         kernels[k]["launches"] = launches[k]
         require(launches[k] > 0, f"{k} was not launched by any entry point")
-    order = ["fused_iter_moments", "warp_planar", "weighted_moments", "warp_floor"]
+    order = ["fused_iter_moments", "warp_planar", "weighted_moments", "warp_floor",
+             "fused_iter_ablate"]
     fields = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms",
               "cold_device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [dict(name=k, **{f: kernels[k][f] for f in fields})

@@ -3,9 +3,11 @@
 `align(I1, I2, config)` covers the reference's three algorithms (quadratic,
 robust, pyramidal: src/inverse_compositional_algorithm.py:17,135,264).
 Images are [H, W, C] or [B, H, W, C] tensors or numpy arrays. Tensors stay
-on their device: CUDA tensors run the hand-written kernels, CPU tensors
-their plain versions. Numpy inputs go to CUDA unless `device` names another
-device (`device="cpu"` for the plain path); without a CUDA device they raise.
+on their device: CUDA tensors run the hand-written kernels (float32 with
+the preconditioner; other configs run the plain op chain on the card, as
+JAX runs its XLA chain for them), CPU tensors their plain versions. Numpy
+inputs go to CUDA unless `device` names another device (`device="cpu"`
+for the plain path); without a CUDA device they raise.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from ..ops.transforms import (
     pad_params,
     transform_grid,
 )
-from ..ops.warp import bicubic_sample, warp_image
+from ..ops.warp import bicubic_sample, domain_mask, warp_image
 from .pyramidal import pyramidal_solve
 
 __all__ = ["AlignResult", "align", "warp", "transform_image", "default_device"]
@@ -93,13 +95,19 @@ def _align_impl(i1: torch.Tensor, i2: torch.Tensor, p0: torch.Tensor,
 
 def _final_warp(state, i1: torch.Tensor, i2: torch.Tensor, config: AlignConfig,
                 y_offset: int = 0) -> AlignResult:
-    """The result of a solve: I2 warped (K3 on CUDA) at the solved motion on
-    the template rows i1 covers, rows y_offset .. y_offset + i1.shape[1] - 1
-    of the frame (all of them unless the rows are tiled)."""
+    """The result of a solve: I2 warped (K3 on CUDA, for float32) at the
+    solved motion on the template rows i1 covers, rows y_offset ..
+    y_offset + i1.shape[1] - 1 of the frame (all of them unless the rows
+    are tiled). Other dtypes warp by the plain sampler on their device, as
+    JAX does (JAX models/api.py:74)."""
     gx, gy = transform_grid(state.p, config.transform, i1.shape[1], i2.shape[2],
                             y_offset=y_offset)
-    iw, valid = warp_image_fast(i2, i2.permute(0, 3, 1, 2).contiguous(), gx, gy,
-                                config.delta)
+    if i2.dtype == torch.float32:
+        iw, valid = warp_image_fast(i2, i2.permute(0, 3, 1, 2).contiguous(), gx, gy,
+                                    config.delta)
+    else:
+        iw = bicubic_sample(i2, gx, gy)
+        valid = domain_mask(gx, gy, i2.shape[1], i2.shape[2], config.delta)
     fill = float("nan") if config.nanifoutside else 0.0
     iw = torch.where(valid[..., None], iw, torch.full_like(iw, fill))
     return AlignResult(p=state.p, error=state.error, niters=state.niters,

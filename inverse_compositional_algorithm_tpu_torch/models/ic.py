@@ -9,9 +9,10 @@ One loop serves both algorithm variants of the reference:
 
 Each pair converges, anneals and can be frozen by the divergence guard on
 its own. The device of the images selects how the normal system of an
-iteration is formed: on CUDA by the fused iteration kernel (K1, plus K4 for
-the quadratic Hessian), on the CPU by the plain op chain
-(warp -> residual -> weights -> hessian/rhs).
+iteration is formed: on CUDA, for float32 with the preconditioner, by the
+fused iteration kernel (K1, plus K4 for the quadratic Hessian); on the CPU,
+and on CUDA for any other dtype or precondition=False, by the plain op
+chain (warp -> residual -> weights -> hessian/rhs).
 """
 
 from __future__ import annotations
@@ -102,9 +103,20 @@ def _identity(t):
     return t
 
 
+def uses_kernels(i1: torch.Tensor, i2: torch.Tensor, p0: torch.Tensor,
+                 precondition: bool) -> bool:
+    """True when the solve forms its system by the kernels: every operand on
+    CUDA, float32, with the preconditioner (the kernels form the
+    preconditioned float32 system). Any other config runs the plain op
+    chain on the operands' device, as JAX takes its XLA chain for it (JAX
+    models/ic.py:212-213)."""
+    return _build.use_kernel(i1, i2, p0) and precondition and i1.dtype == torch.float32
+
+
 def _plain_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside,
                   delta, scale, hessian_chunk, y_offset: int = 0, reduce=None):
-    """CPU path: system(p, lam) -> (H [B,8,8], b [B,8]) by the plain op chain.
+    """Plain path (CPU; CUDA for float64 or precondition=False):
+    system(p, lam) -> (H [B,8,8], b [B,8]) by the plain op chain.
 
     i1 and its gradient maps may be the band of rows y_offset .. of the
     frame i2 (the row-tiled solver, `parallel.tiled`): the grid and the
@@ -197,9 +209,10 @@ def ic_solve(
     """Estimate p aligning I2 to I1 at a single scale.
 
     Args:
-      i1, i2: [B, H, W, C] images, both on the CPU (float32 or float64) or
-        both on CUDA (float32, precondition=True: the kernels form the
-        preconditioned system).
+      i1, i2: [B, H, W, C] images, both on the CPU or both on CUDA. On
+        CUDA, float32 with precondition=True runs the kernels (they form
+        the preconditioned system); float64 or precondition=False runs the
+        plain op chain there, as the CPU does.
       p0: [B, 8] padded warm start, on the images' device.
       robust: QUADRATIC selects the pure IC algorithm; anything else IRLS.
       lam: robust threshold; <= 0 enables the LAMBDA_0 -> LAMBDA_N annealing
@@ -219,9 +232,7 @@ def ic_solve(
     """
     _, hh, ww, _ = i1.shape
     dt = i1.dtype
-    fused = _build.use_kernel(i1, i2, p0)
-    if fused and not (dt == torch.float32 and precondition):
-        raise ValueError("the CUDA path takes float32 images and precondition=True")
+    fused = uses_kernels(i1, i2, p0, precondition)
     if delta_cap:
         delta = effective_delta(delta, hh, ww)
 

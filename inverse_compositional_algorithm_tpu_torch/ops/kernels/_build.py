@@ -37,6 +37,8 @@ _SIGNATURES = {
     "ica_weighted_moments": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "ica_fused_iter_moments": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _F, _P],
+    "ica_fused_iter_ablate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 
 # Filled by the first load: library path, whether it was compiled in this

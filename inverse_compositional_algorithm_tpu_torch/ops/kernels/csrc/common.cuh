@@ -1,12 +1,15 @@
 // Device code shared by the alignment kernels (fused_iter.cu, warp_planar.cu,
-// weighted_moments.cu) and the benchmark's warp floor (warp_floor.cu).
+// weighted_moments.cu), K1's ablation variants (fused_iter_ablate.cu) and
+// the benchmark's warp floor (warp_floor.cu).
 //
 // * The Keys (a = -0.5) bicubic sampler with Neumann (clip-to-edge) taps,
 //   the semantics of ops/warp.py::bicubic_sample: keys_weights (K1, K3, K5),
-//   tap_origin and Sampler (K1, K3). Replaces the TPU's shared tile core
-//   ops/pallas/tile_warp.py::warp_tile. The TPU core reads a tile's taps
-//   out of a VMEM window (fast tier) or from HBM (general tier); here every
-//   tap is read from device memory through L1, exact for any coordinate.
+//   tap_origin and Sampler (K1, K3; BasicSampler<ABL> also takes the
+//   measurement-only knobs of K1's ablation variants). Replaces the TPU's
+//   shared tile core ops/pallas/tile_warp.py::warp_tile. The TPU core
+//   reads a tile's taps out of a VMEM window (fast tier) or from HBM
+//   (general tier); here every tap is read from device memory through L1,
+//   exact for any coordinate.
 //   A shared-memory tier (each tile's tap box staged by cp.async) was built
 //   for K1 and K3 and measured slower than this on both (PERF.md §6).
 // * accumulate_pixel / finish_row / finish_tile_row / finish_block /
@@ -163,35 +166,84 @@ __device__ __forceinline__ int tap_origin(float g, int n) {
   return (int)fminf(fmaxf(floorf(g), -4.0f), (float)n + 3.0f);
 }
 
+// Measurement-only knobs of K1's ablation variants (fused_iter_ablate.cu,
+// eval/attr_bench.py): each removes one cost slice, and the moments are
+// then wrong by design. Production code instantiates none of them.
+constexpr int ABL_NOMASK = 1;     // no per-tap column clamps (the origin clamped once)
+constexpr int ABL_NOFOLD = 2;     // no per-tap row clamps (the origin clamped once)
+constexpr int ABL_CHEAPWY = 4;    // linear y weights in place of the Keys weights
+constexpr int ABL_NOEPI = 8;      // K1: the warp alone, samples summed into one moment
+constexpr int ABL_EPIONLY = 16;   // K1: no warp (iw = 0); template, rho', moments stay
+constexpr int ABL_CHEAPMOM = 32;  // K1: one x factor for every moment power
+constexpr int ABL_NORHO = 64;     // K1: rho' = t2 * lambda in place of the loss
+
+// The identity, hidden from the compiler's arithmetic. A variant that drops
+// a clamp passes the index through it, so that the tap addresses are built
+// as for a clamped index and the variant differs from production by the
+// clamp alone (folded into the addresses, the unclamped rows spilled
+// registers at K1's 80-register cap).
+__device__ __forceinline__ int opaque(int v) {
+  int r;
+  asm("mov.b32 %0, %1;" : "=r"(r) : "r"(v));
+  return r;
+}
+
 // One point's tap origin and Keys weights; eval(plane, H, W) samples a
 // plane [H, W] at its 16 clamped taps, read from device memory through L1,
 // as rows of column sums sum_j wy[j] * (sum_i wx[i] * tap[j][i]). setup
-// once per point, eval once per channel.
-struct Sampler {
+// once per point, eval once per channel. ABL (0 in production: `Sampler`)
+// takes the ABL_NOMASK, ABL_NOFOLD and ABL_CHEAPWY knobs. Without the
+// per-tap clamps of an axis, setup clamps that axis's origin to
+// [1, n - 3] once, so every tap still lies in the plane (n >= 4); a point
+// inside the delta domain (delta >= 2) has all its taps there already, so
+// its sample is unchanged.
+template <int ABL = 0>
+struct BasicSampler {
   int x0, y0;   // the tap origin (tap_origin)
   float wx[4], wy[4];
 
   __device__ __forceinline__ void setup(float gx, float gy, int H, int W) {
     const float x0f = floorf(gx), y0f = floorf(gy);
     keys_weights(gx - x0f, wx);
-    keys_weights(gy - y0f, wy);
+    if constexpr ((ABL & ABL_CHEAPWY) != 0) {
+      const float t = gy - y0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wy[j] = (t + 1.0f - (float)j) * 0.01f;
+    } else {
+      keys_weights(gy - y0f, wy);
+    }
     x0 = tap_origin(gx, W);
     y0 = tap_origin(gy, H);
+    if constexpr ((ABL & ABL_NOMASK) != 0) x0 = min(max(x0, 1), W - 3);
+    if constexpr ((ABL & ABL_NOFOLD) != 0) y0 = min(max(y0, 1), H - 3);
   }
 
   __device__ __forceinline__ float eval(const float* __restrict__ plane, int H, int W) const {
     float out = 0.0f;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float* r = plane + min(max(y0 + j - 1, 0), H - 1) * W;
+      int yr = y0 + j - 1;
+      if constexpr ((ABL & ABL_NOFOLD) == 0)
+        yr = min(max(yr, 0), H - 1);
+      else
+        yr = opaque(yr);
+      const float* r = plane + yr * W;
       float s = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s += wx[i] * __ldg(r + min(max(x0 + i - 1, 0), W - 1));
+      for (int i = 0; i < 4; ++i) {
+        int xc = x0 + i - 1;
+        if constexpr ((ABL & ABL_NOMASK) == 0)
+          xc = min(max(xc, 0), W - 1);
+        else
+          xc = opaque(xc);
+        s += wx[i] * __ldg(r + xc);
+      }
       out += wy[j] * s;
     }
     return out;
   }
 };
+using Sampler = BasicSampler<>;
 
 // ---- TMA and mbarriers (K5) ----
 

@@ -31,6 +31,8 @@
 // W-3 floats are not 16-B multiples, so neither TMA stores nor vector
 // stores apply, and the edge past the frame is masked. The sums are K3's
 // Sampler's, row sums first.
+#include <atomic>
+
 #include "common.cuh"
 
 namespace ica {
@@ -183,18 +185,31 @@ extern "C" int ica_warp_floor(const float* img, float* out, int B, int C, int H,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
-  // The persistent grid: as many blocks as fit on the card at once.
+  // The persistent grid: as many blocks as fit at once on the card the
+  // launch goes to, found on that card's first launch and kept per device
+  // ordinal (the cards of one process may differ). The attribute is set
+  // per device too. Two threads that race on a device's first launch both
+  // find the same value.
   const int smem = K5_STAGES * K5_STAGE * 4;
-  static const int resident = [smem] {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(warp_floor_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, warp_floor_kernel<true>, K5_THREADS,
-                                                  smem);
-    return sms * per_sm;
-  }();
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<int> resident_on[MAX_DEVICES];   // 0: not found yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int resident = dev < MAX_DEVICES ? resident_on[dev].load(std::memory_order_relaxed) : 0;
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (err = cudaFuncSetAttribute(warp_floor_kernel<true>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, warp_floor_kernel<true>,
+                                                             K5_THREADS, smem)) != cudaSuccess)
+      return (int)err;
+    resident = sms * per_sm;
+    if (resident <= 0) return (int)cudaErrorInvalidConfiguration;
+    if (dev < MAX_DEVICES) resident_on[dev].store(resident, std::memory_order_relaxed);
+  }
   const int grid = ntiles < resident ? ntiles : resident;
   warp_floor_kernel<true><<<grid, K5_THREADS, smem, s>>>(map, img, out, H, W, Ho, Wo, tiles_x,
                                                          tiles_plane, ntiles);

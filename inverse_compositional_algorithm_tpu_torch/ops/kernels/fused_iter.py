@@ -8,6 +8,9 @@ tensors run csrc/fused_iter.cu, which forms the sampling coordinates itself
 and writes no per-pixel intermediate to device memory; CPU tensors take
 `fused_iter_moments_ref`, the op chain the kernel replaces (transform_grid,
 warp, masked residual, robust weights, channel-reduced moments).
+
+`fused_iter_moments_ablate` launches K1's measurement-only ablation
+variants (csrc/fused_iter_ablate.cu), which eval/attr_bench.py times.
 """
 
 from __future__ import annotations
@@ -24,12 +27,38 @@ from .normal_eq import moments_ref
 from .warp import warp_planar_ref
 
 __all__ = ["FusedIterPlan", "plan_fused_iter", "fused_iter_moments",
-           "fused_iter_moments_ref", "LAUNCHES"]
+           "fused_iter_moments_ref", "fused_iter_moments_ablate", "ablate_variant",
+           "ABLATE_KNOBS", "ABLATE_NOT_APPLICABLE", "LAUNCHES", "ABLATE_LAUNCHES"]
 
 # Number of times `fused_iter_moments` launched its CUDA kernel.
 LAUNCHES = 0
+# Number of times `fused_iter_moments_ablate` launched its CUDA kernel.
+ABLATE_LAUNCHES = 0
 # Output rows per block of the kernel: it writes one partial per band.
 K1_ROWS = 8
+
+# The ablation variants' knobs (the JAX package's `ablate=` names), each the
+# bit of its ABL_* constant in csrc/common.cuh, and what it removes.
+ABLATE_KNOBS = {
+    "nomask": 1,     # the per-tap column clamps
+    "nofold": 2,     # the per-tap row clamps (the TPU's top-row clamp fold)
+    "cheapwy": 4,    # the Keys y weights (linear weights instead)
+    "noepi": 8,      # the epilogue: mask, template, rho', moments
+    "epionly": 16,   # the warp (iw = 0)
+    "cheapmom": 32,  # the moments' x-power chain
+    "norho": 64,     # the loss (rho' = t2 * lambda)
+}
+_GATHER = ("prices the TPU's {} of 128-lane tap-column gathers; the Hopper "
+           "sampler issues one load a tap and has no chunks or lanes to gather")
+# The JAX knobs with no meaning on Hopper, and why.
+ABLATE_NOT_APPLICABLE = {
+    "chunk1": _GATHER.format("3-chunk unroll (cut to 1 chunk)"),
+    "chunk2": _GATHER.format("3-chunk unroll (cut to 2 chunks)"),
+    "rollgather": _GATHER.format("lane rotates in place"),
+}
+# The knob sets csrc/fused_iter_ablate.cu instantiates.
+_ABLATE_BUILT = {0, *ABLATE_KNOBS.values(),
+                 ABLATE_KNOBS["nomask"] | ABLATE_KNOBS["nofold"] | ABLATE_KNOBS["cheapwy"]}
 
 
 @dataclass(frozen=True)
@@ -88,6 +117,42 @@ def fused_iter_moments_ref(i2p, tplp, mat, projective: bool, lam, height: int, w
     return moments_ref(maps, 1.0 / float(max(height, width)), y_offset)
 
 
+def _check_args(i2p, tplp, robust, height: int, width: int) -> None:
+    """Raise unless the packed plan fits the loss and i2p is the frame."""
+    c, h, w = i2p.shape[1:]
+    npl = tplp.shape[1]
+    if robust is RobustLoss.QUADRATIC:
+        raise ValueError("pass robust=None for the quadratic path")
+    if robust is not None and npl < 3 * c + 3:
+        raise ValueError(f"robust path needs P = 3C+3 packed planes, got {npl} (C={c})")
+    if npl < 3 * c:
+        raise ValueError(f"packed template needs >= 3C planes, got {npl}")
+    if (h, w) != (height, width):
+        raise ValueError(f"i2p is {h}x{w}, expected {height}x{width}")
+
+
+def _launch(entry: str, i2p, tplp, mat, projective, lam, height, width, robust,
+            nanifoutside, delta, y_offset, *extra) -> torch.Tensor:
+    """Check the operands of K1 (or of a variant) and launch C entry
+    `entry` with K1's arguments, then `extra`; returns [B, K, 8, 8]."""
+    b, c, h, w = i2p.shape
+    npl, ho, wo = tplp.shape[1:]
+    _build.check_operand(i2p, "i2p", (b, c, h, w))
+    _build.check_operand(tplp, "tplp", (b, npl, ho, wo))
+    _build.check_operand(mat, "mat", (b, 3, 3))
+    if max(c * h * w, npl * ho * wo) >= 2 ** 31:
+        raise ValueError("a pair's planes are too large for the kernel's 32-bit offsets")
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=i2p.device).expand(b).contiguous()
+    nk = 2 if robust is None else 5
+    nbands = -(-ho // K1_ROWS)
+    partial = torch.empty((b, nk, nbands, 25), dtype=torch.float32, device=i2p.device)
+    out = torch.empty((b, nk, 8, 8), dtype=torch.float32, device=i2p.device)
+    _build.launch(entry, i2p, tplp, mat, lam, partial, out, b, c, npl, h, w, ho, wo,
+                  int(projective), 0 if robust is None else robust.value, int(nanifoutside),
+                  int(delta), int(y_offset), 1.0 / float(max(height, width)), *extra)
+    return out
+
+
 def fused_iter_moments(i2p, tplp, mat, projective: bool, lam, height: int, width: int,
                        robust: RobustLoss | None, nanifoutside: bool,
                        delta: int, y_offset: int = 0) -> torch.Tensor:
@@ -113,32 +178,64 @@ def fused_iter_moments(i2p, tplp, mat, projective: bool, lam, height: int, width
       2 (u, v).
     """
     global LAUNCHES
-    b, c, h, w = i2p.shape
-    npl, ho, wo = tplp.shape[1:]
-    if robust is RobustLoss.QUADRATIC:
-        raise ValueError("pass robust=None for the quadratic path")
-    if robust is not None and npl < 3 * c + 3:
-        raise ValueError(f"robust path needs P = 3C+3 packed planes, got {npl} (C={c})")
-    if npl < 3 * c:
-        raise ValueError(f"packed template needs >= 3C planes, got {npl}")
-    if (h, w) != (height, width):
-        raise ValueError(f"i2p is {h}x{w}, expected {height}x{width}")
-    lam = torch.as_tensor(lam, dtype=torch.float32, device=i2p.device).expand(b)
+    _check_args(i2p, tplp, robust, height, width)
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=i2p.device).expand(i2p.shape[0])
     if not _build.use_kernel(i2p, tplp, mat):
         return fused_iter_moments_ref(i2p, tplp, mat, projective, lam, height, width, robust,
                                       nanifoutside, delta, y_offset)
-    _build.check_operand(i2p, "i2p", (b, c, h, w))
-    _build.check_operand(tplp, "tplp", (b, npl, ho, wo))
-    _build.check_operand(mat, "mat", (b, 3, 3))
-    if max(c * h * w, npl * ho * wo) >= 2 ** 31:
-        raise ValueError("a pair's planes are too large for the kernel's 32-bit offsets")
-    lam = lam.contiguous()
-    nk = 2 if robust is None else 5
-    nbands = -(-ho // K1_ROWS)
-    partial = torch.empty((b, nk, nbands, 25), dtype=torch.float32, device=i2p.device)
-    out = torch.empty((b, nk, 8, 8), dtype=torch.float32, device=i2p.device)
-    _build.launch("ica_fused_iter_moments", i2p, tplp, mat, lam, partial, out, b, c, npl, h, w,
-                  ho, wo, int(projective), 0 if robust is None else robust.value,
-                  int(nanifoutside), int(delta), int(y_offset), 1.0 / float(max(height, width)))
+    out = _launch("ica_fused_iter_moments", i2p, tplp, mat, projective, lam, height, width,
+                  robust, nanifoutside, delta, y_offset)
     LAUNCHES += 1
+    return out
+
+
+def ablate_variant(ablate: str) -> int:
+    """The ABL_* bit set of an `ablate` string in the JAX spelling
+    ("nomask,chunk2,cheapwy,nofold"; "" for the full kernel). Knobs with no
+    Hopper meaning (ABLATE_NOT_APPLICABLE) drop out of a combination and
+    raise alone; unknown knobs and sets the library does not instantiate
+    raise."""
+    knobs = [k.strip() for k in ablate.split(",") if k.strip()]
+    unknown = [k for k in knobs if k not in ABLATE_KNOBS and k not in ABLATE_NOT_APPLICABLE]
+    if unknown:
+        raise ValueError(f"unknown ablation knobs {unknown}")
+    kept = [k for k in knobs if k in ABLATE_KNOBS]
+    if knobs and not kept:
+        raise ValueError(f"{ablate!r} is not applicable on Hopper: "
+                         + "; ".join(ABLATE_NOT_APPLICABLE[k] for k in knobs))
+    bits = 0
+    for k in kept:
+        bits |= ABLATE_KNOBS[k]
+    if bits not in _ABLATE_BUILT:
+        raise ValueError(f"no ablation variant is built for {','.join(kept)!r}")
+    return bits
+
+
+def fused_iter_moments_ablate(i2p, tplp, mat, projective: bool, lam, height: int, width: int,
+                              robust: RobustLoss, nanifoutside: bool, delta: int,
+                              y_offset: int = 0, *, ablate: str) -> torch.Tensor:
+    """K1 with one cost slice removed (`ablate`, see `ablate_variant`), for
+    timing only (eval/attr_bench.py): [B, 5, 8, 8], the arguments of
+    `fused_iter_moments` for C = 3 on a robust loss.
+
+    The moments are wrong by design, save for "" (the production kernel's
+    arithmetic) and "nomask" and "nofold" (equal to it bit for bit at
+    delta >= 2, where every counted pixel's taps lie inside the frame).
+    The variants have no plain version, so CPU tensors raise, as do any
+    other C, the quadratic path and frames under 4x4.
+    """
+    global ABLATE_LAUNCHES
+    variant = ablate_variant(ablate)
+    if not _build.use_kernel(i2p, tplp, mat):
+        raise ValueError("the ablation variants run only on CUDA tensors: they have no "
+                         "plain version")
+    if robust is None or robust is RobustLoss.QUADRATIC:
+        raise ValueError("the ablation variants are built for the robust path only")
+    _check_args(i2p, tplp, robust, height, width)
+    if i2p.shape[1] != 3 or min(height, width) < 4:
+        raise ValueError(f"the ablation variants are built for C = 3 and frames of at least "
+                         f"4x4, got i2p {tuple(i2p.shape)}")
+    out = _launch("ica_fused_iter_ablate", i2p, tplp, mat, projective, lam, height, width,
+                  robust, nanifoutside, delta, y_offset, variant)
+    ABLATE_LAUNCHES += 1
     return out

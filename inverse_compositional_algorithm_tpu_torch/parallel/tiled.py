@@ -46,9 +46,9 @@ from ..models.ic import (
     effective_delta,
     ic_solve,
     iterate,
+    uses_kernels,
 )
 from ..ops.gradients import boundary_band_mask
-from ..ops.kernels import _build
 from ..ops.normal_equations import RobustLoss, grad_moments
 from ..ops.pyramid import build_pyramid, pyramid_shapes
 from ..ops.transforms import TransformType, pad_params, param_preconditioner, zoom_in_params
@@ -136,8 +136,9 @@ def tiled_ic_solve(
         r*H/nt .. (r+1)*H/nt - 1 for tile index r.
       i2: [B, H, W, C], the whole moving image of the same pairs.
       p0: [B, 8] warm start. All three on one device: CUDA tensors
-        (float32, precondition=True) run K1 per iteration, CPU tensors the
-        plain op chain. Every rank of a tile group passes the same pairs.
+        (float32, precondition=True) run K1 per iteration; CPU tensors, and
+        CUDA tensors of another dtype or with precondition=False, the plain
+        op chain. Every rank of a tile group passes the same pairs.
       mesh: a ("pairs", "tile") mesh (`parallel.mesh.make_mesh`).
       Other arguments as in `ic_solve`.
 
@@ -154,9 +155,7 @@ def tiled_ic_solve(
         raise ValueError(f"i1_loc {tuple(i1_loc.shape)} is not a {nt}-way row band of "
                          f"i2 {tuple(i2.shape)}")
     dt = i1_loc.dtype
-    fused = _build.use_kernel(i1_loc, i2, p0)
-    if fused and not (dt == torch.float32 and precondition):
-        raise ValueError("the CUDA path takes float32 images and precondition=True")
+    fused = uses_kernels(i1_loc, i2, p0, precondition)
     if delta_cap:
         delta = effective_delta(delta, hh, ww)
     y0, _ = row_span(mesh, hh)

@@ -156,15 +156,21 @@ def test_numpy_input_needs_a_device(monkeypatch):
 
 
 def test_port_never_imports_jax():
-    """Importing the port with its entry points (parallel/ included) and
-    running a small align leaves jax and the JAX package unimported."""
+    """Importing the port with its entry points (parallel/ and the
+    stabilization walkthrough included) and running a small align leaves
+    jax and the JAX package unimported."""
     code = (
         "import sys, numpy as np\n"
         "import inverse_compositional_algorithm_tpu_torch as ica\n"
         "from inverse_compositional_algorithm_tpu_torch import cli\n"
         "from inverse_compositional_algorithm_tpu_torch.eval import (\n"
-        "    benchmarks, harness, plots, profile_stages, run_eval)\n"
+        "    attr_bench, benchmarks, harness, plots, profile_stages, run_eval)\n"
+        "from inverse_compositional_algorithm_tpu_torch.models import layers\n"
+        "from inverse_compositional_algorithm_tpu_torch.ops import matrix_operators\n"
         "from inverse_compositional_algorithm_tpu_torch.ops.kernels import warp_floor\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('s', 'examples/stabilize_torch.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "from inverse_compositional_algorithm_tpu_torch.parallel import (\n"
         "    launch, mesh, ranks, scaling, sharded, spawn, tiled)\n"
         "from inverse_compositional_algorithm_tpu_torch.utils import (\n"

@@ -276,9 +276,53 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         k3.warp_planar(img, gx.cpu(), gy)
     with pytest.raises(ValueError):
         k4.weighted_moments(rand((1, 6, 16, 24), 7, cuda))
-    with pytest.raises(ValueError):
-        ica.align(rand((16, 24, 3), 5, cuda).double(), rand((16, 24, 3), 6, cuda).double(),
-                  dtype=torch.float64)
+    plan = k1_plan(1, 16, 24, 2, cuda)
+    mat = torch.eye(3, device=cuda)[None]
+    with pytest.raises(TypeError):
+        k1.fused_iter_moments(plan.i2p.double(), plan.tplp, mat, False, 5.0, 16, 24,
+                              R.CHARBONNIER, True, 2)
+    # The ablation variants: C = 3 on a robust loss only, built knob sets only.
+    gray = k1.plan_fused_iter(*(rand((1, 16, 24, 1), s, cuda) for s in (1, 2, 3, 4)),
+                              *(rand((1, 16, 24), s, cuda) for s in (5, 6, 7)))
+    before = k1.ABLATE_LAUNCHES
+    for p, robust, ablate in [(gray, R.CHARBONNIER, ""), (plan, None, ""),
+                              (plan, R.CHARBONNIER, "nomask,norho"),
+                              (plan, R.CHARBONNIER, "chunk2")]:
+        with pytest.raises(ValueError):
+            k1.fused_iter_moments_ablate(p.i2p, p.tplp, mat, False, 5.0, 16, 24, robust, True,
+                                         2, ablate=ablate)
+    assert k1.ABLATE_LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,precondition", [(torch.float64, True), (torch.float64, False),
+                                                (torch.float32, False)])
+def test_align_plain_configs_run_on_cuda(cuda, dtype, precondition):
+    """float64 and precondition=False run on the card through the plain op
+    chain, as JAX runs its XLA chain for them: no K1 (and no K3 for
+    float64), and the CPU plain path's result, at 1e-9 on p in float64.
+    float32 sums run in another order on the card, so the float32 case is
+    held at 1e-2 px of corner displacement, as test_align_on_cuda_matches_cpu."""
+    base = torch.tensor(np.random.default_rng(7).uniform(0, 255, (1, 97, 146, 3)), dtype=dtype)
+    base = ica.ops.pyramid.gaussian_blur(base, 2.0)
+    p = torch.tensor([[0.01, -0.005, 1.5, 0.008, -0.01, -1.0, 5e-5, -3e-5]], dtype=dtype)
+    i1 = ica.ops.warp.bicubic_sample(base, *ica.transform_grid(p, T.HOMOGRAPHY, 97, 146))
+    cfg = ica.AlignConfig(transform=T.HOMOGRAPHY, robust=R.CHARBONNIER, nscales=3,
+                          precondition=precondition)
+    for m in (k1, k3, k4):
+        m.LAUNCHES = 0
+    gpu = ica.align(i1.to(cuda), base.to(cuda), cfg, dtype=dtype)
+    assert gpu.p.is_cuda and gpu.p.dtype == dtype and gpu.iw.is_cuda
+    assert (k1.LAUNCHES, k4.LAUNCHES) == (0, 0)
+    assert k3.LAUNCHES == (1 if dtype == torch.float32 else 0)
+    cpu = ica.align(i1, base, cfg, dtype=dtype)
+    assert torch.equal(gpu.niters.cpu(), cpu.niters)
+    if dtype == torch.float64:
+        assert float((gpu.p.cpu() - cpu.p).abs().max()) <= 1e-9
+    else:
+        xs, ys = [0.0, 145.0, 0.0, 145.0], [0.0, 0.0, 96.0, 96.0]
+        ax, ay = ica.ops.transforms.transform_points(gpu.p.cpu().double(), T.HOMOGRAPHY, xs, ys)
+        bx, by = ica.ops.transforms.transform_points(cpu.p.double(), T.HOMOGRAPHY, xs, ys)
+        assert float(torch.hypot(ax - bx, ay - by).max()) <= 1e-2
 
 
 def test_align_on_cuda_matches_cpu(cuda):
@@ -361,3 +405,109 @@ def test_evaluate_on_cuda_matches_cpu(cuda):
     assert got.converged_frac == want.converged_frac == 1.0
     assert got.diverged_frac == want.diverged_frac
     assert abs(got.mae - want.mae) <= 1e-4 and abs(got.max_err - want.max_err) <= 1e-3
+
+
+def test_warp_floor_on_a_second_card(cuda):
+    """K5 sizes its persistent grid per card: on cuda:1 after cuda:0 it
+    still agrees with its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA devices")
+    for dev in (torch.device("cuda:0"), torch.device("cuda:1"), torch.device("cuda:0")):
+        img = rand((8, 3, 388, 584), 8, dev)
+        got = k5.warp_floor(img)
+        assert got.device == dev
+        assert float((got - k5.warp_floor_ref(img)).abs().max()) <= WARP_TOL
+
+
+def _bench_plan(b, dev):
+    """K1's operands on `b` bench pairs (the flagship shape, delta 10)."""
+    from inverse_compositional_algorithm_tpu_torch.eval import benchmarks
+
+    i1, i2, p0, _, _, ix, iy, g3 = benchmarks.hot_state(b, 388, 584, T.HOMOGRAPHY)
+    plan = k1.plan_fused_iter(i1, i2, ix, iy, *g3, robust=True)
+    mat = ica.params_to_matrix(p0, T.HOMOGRAPHY).contiguous()
+    return (plan.i2p, plan.tplp, mat, True, torch.full((b,), 5.0, device=dev), 388, 584,
+            R.CHARBONNIER, True, 10)
+
+
+def test_fused_iter_ablate_variants(cuda):
+    """The full, nomask and nofold variants give the production K1's
+    moments bit for bit at delta 10; every other variant is finite, repeats
+    bit for bit and differs from the full one."""
+    from inverse_compositional_algorithm_tpu_torch.eval.attr_bench import HOPPER
+
+    args = _bench_plan(2, cuda)
+    prod = k1.fused_iter_moments(*args)
+    before, n = k1.ABLATE_LAUNCHES, 0
+    for name, hop in HOPPER.items():
+        if hop is None:
+            continue
+        got = k1.fused_iter_moments_ablate(*args, ablate=name)
+        again = k1.fused_iter_moments_ablate(*args, ablate=hop)
+        n += 2
+        assert bitwise_equal(got, again), name
+        if hop in ("", "nomask", "nofold"):
+            assert bitwise_equal(got, prod), name
+        else:
+            assert bool(torch.isfinite(got).all()) and not torch.equal(got, prod), name
+    assert k1.ABLATE_LAUNCHES == before + n == before + 18
+
+
+def test_attr_bench_run(cuda):
+    from inverse_compositional_algorithm_tpu_torch.eval import attr_bench
+
+    rows = attr_bench.run(batch=2, variants=["", "noepi", "chunk2",
+                                             "nomask,chunk2,cheapwy,nofold"])
+    full = rows["(full)"]
+    assert full["device_ms"] > 0 and full["cold_device_ms"] > 0 and full["delta_ms"] is None
+    assert rows["noepi"]["device_ms"] > 0 and rows["noepi"]["delta_ms"] is not None
+    assert "not_applicable" in rows["chunk2"]
+    assert rows["nomask,chunk2,cheapwy,nofold"]["hopper"] == "nomask,cheapwy,nofold"
+    assert rows["vpu_floor"]["device_ms"] > 0 and rows["vpu_floor"]["full_over_floor"] > 0
+
+
+def test_stabilize_torch_on_cuda(cuda):
+    """The walkthrough on the card lands within 1e-2 px of corner
+    displacement of the ground-truth jitter, through K1 and K3."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "examples", "stabilize_torch.py")
+    spec = importlib.util.spec_from_file_location("stabilize_torch", path)
+    stab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stab)
+    for m in (k1, k3):
+        m.LAUNCHES = 0
+    est = stab.main(device="cuda")
+    assert k1.LAUNCHES > 0 and k3.LAUNCHES == 1
+    _, gt = stab.make_sequence(device="cpu")
+    t = T.EUCLIDEAN
+    xs, ys = [0.0, 383.0, 0.0, 383.0], [0.0, 0.0, 287.0, 287.0]
+    ax, ay = ica.ops.transforms.transform_points(
+        ica.pad_params(torch.tensor(est, dtype=torch.float64), t), t, xs, ys)
+    bx, by = ica.ops.transforms.transform_points(
+        ica.pad_params(torch.tensor(gt[:, :3], dtype=torch.float64), t), t, xs, ys)
+    assert float(torch.hypot(ax - bx, ay - by).max()) <= 1e-2
+
+
+def test_layers_on_cuda(cuda):
+    """The reference-signature shims run on the card: K1 and K3 always, K4
+    on the quadratic ones; numpy input goes to CUDA by default."""
+    from inverse_compositional_algorithm_tpu_torch.models import layers
+
+    base = ica.ops.pyramid.gaussian_blur(rand((1, 97, 146, 3), 7, "cpu"), 2.0)
+    p_gt = [1.2, -0.8, 0.015]
+    gx, gy = ica.transform_grid(ica.pad_params(torch.tensor([p_gt]), T.EUCLIDEAN),
+                                T.EUCLIDEAN, 97, 146)
+    i1 = ica.ops.warp.bicubic_sample(base, gx, gy)[0].numpy()
+    i2 = base[0].numpy()
+    for shim, quadratic in [(layers.InverseCompositional(), True),
+                            (layers.RobustInverseCompositional(), False),
+                            (layers.PyramidalInverseCompositional(), True)]:
+        for m in (k1, k3, k4):
+            m.LAUNCHES = 0
+        p, err, di, iw = shim((i1, i2))
+        assert p.is_cuda and iw.is_cuda and di.is_cuda
+        assert k1.LAUNCHES > 0 and k3.LAUNCHES == 1 and (k4.LAUNCHES > 0) == quadratic
+        assert float((p.cpu() - torch.tensor(p_gt)).abs().max()) <= 1e-3
