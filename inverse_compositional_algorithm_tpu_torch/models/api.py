@@ -27,6 +27,7 @@ from ..ops.transforms import (
     transform_grid,
 )
 from ..ops.warp import bicubic_sample, domain_mask, warp_image
+from ..utils.profiling import span
 from .pyramidal import pyramidal_solve
 
 __all__ = ["AlignResult", "align", "warp", "transform_image", "default_device"]
@@ -36,7 +37,13 @@ __all__ = ["AlignResult", "align", "warp", "transform_image", "default_device"]
 class AlignResult:
     """The reference's (p, error, DI, Iw) return tuple
     (src/inverse_compositional_algorithm.py:133), plus per-pair iteration
-    counts, the validity mask of the final warp and the divergence flags."""
+    counts, the validity mask of the final warp and the divergence flags.
+
+    `level_niters` holds each pyramid level's per-pair iteration counts,
+    coarsest first ([B] int32 each, left on the device). A level runs
+    max(n) trips, each over all B pairs; sum(n) of those B * max(n)
+    pair-trips moved a pair. It is empty where the caller keeps no levels
+    (the row-tiled path)."""
 
     p: torch.Tensor         # [B, 8] padded final parameters (or [8] for single input)
     error: torch.Tensor     # [B] final ||dp||
@@ -45,6 +52,7 @@ class AlignResult:
     iw: torch.Tensor        # [B, H, W, C] final warped I2
     valid: torch.Tensor     # [B, H, W] bool, warp in-domain mask
     diverged: torch.Tensor  # [B] bool, finest-scale divergence guard tripped
+    level_niters: tuple = ()  # per level, coarsest first: [B] iterations applied
 
     def params(self, config: AlignConfig) -> torch.Tensor:
         """Un-padded parameter vector(s) for the configured model."""
@@ -79,7 +87,7 @@ def _to_tensor(x, dtype: torch.dtype | None, device) -> torch.Tensor:
 def _align_impl(i1: torch.Tensor, i2: torch.Tensor, p0: torch.Tensor,
                 config: AlignConfig) -> AlignResult:
     """Batched pipeline: pyramid solve, then the final warp (K3 on CUDA)."""
-    state, _ = pyramidal_solve(
+    state, per_scale = pyramidal_solve(
         i1, i2, p0, config.transform,
         nscales=config.nscales, nu=config.nu, tol=config.tol,
         max_iter=config.max_iter, robust=config.robust, lam=config.lam,
@@ -90,28 +98,31 @@ def _align_impl(i1: torch.Tensor, i2: torch.Tensor, p0: torch.Tensor,
         divergence_guard=config.divergence_guard,
         delta_cap=config.delta_cap,
     )
-    return _final_warp(state, i1, i2, config)
+    return _final_warp(state, i1, i2, config,
+                       level_niters=tuple(s.niters for s in per_scale))
 
 
 def _final_warp(state, i1: torch.Tensor, i2: torch.Tensor, config: AlignConfig,
-                y_offset: int = 0) -> AlignResult:
+                y_offset: int = 0, level_niters: tuple = ()) -> AlignResult:
     """The result of a solve: I2 warped (K3 on CUDA, for float32) at the
     solved motion on the template rows i1 covers, rows y_offset ..
     y_offset + i1.shape[1] - 1 of the frame (all of them unless the rows
     are tiled). Other dtypes warp by the plain sampler on their device, as
     JAX does (JAX models/api.py:74)."""
-    gx, gy = transform_grid(state.p, config.transform, i1.shape[1], i2.shape[2],
-                            y_offset=y_offset)
-    if i2.dtype == torch.float32:
-        iw, valid = warp_image_fast(i2, i2.permute(0, 3, 1, 2).contiguous(), gx, gy,
-                                    config.delta)
-    else:
-        iw = bicubic_sample(i2, gx, gy)
-        valid = domain_mask(gx, gy, i2.shape[1], i2.shape[2], config.delta)
-    fill = float("nan") if config.nanifoutside else 0.0
-    iw = torch.where(valid[..., None], iw, torch.full_like(iw, fill))
-    return AlignResult(p=state.p, error=state.error, niters=state.niters,
-                       di=iw - i1, iw=iw, valid=valid, diverged=state.diverged)
+    with span("ica.final_warp"):
+        gx, gy = transform_grid(state.p, config.transform, i1.shape[1], i2.shape[2],
+                                y_offset=y_offset)
+        if i2.dtype == torch.float32:
+            iw, valid = warp_image_fast(i2, i2.permute(0, 3, 1, 2).contiguous(), gx, gy,
+                                        config.delta)
+        else:
+            iw = bicubic_sample(i2, gx, gy)
+            valid = domain_mask(gx, gy, i2.shape[1], i2.shape[2], config.delta)
+        fill = float("nan") if config.nanifoutside else 0.0
+        iw = torch.where(valid[..., None], iw, torch.full_like(iw, fill))
+        return AlignResult(p=state.p, error=state.error, niters=state.niters,
+                           di=iw - i1, iw=iw, valid=valid, diverged=state.diverged,
+                           level_niters=level_niters)
 
 
 def align(i1, i2, config: AlignConfig = AlignConfig(), p0=None,
@@ -130,33 +141,35 @@ def align(i1, i2, config: AlignConfig = AlignConfig(), p0=None,
     Returns:
       AlignResult (batch dims match the input rank).
     """
-    config.validate()
-    i1 = _to_tensor(i1, dtype, device)
-    i2 = _to_tensor(i2, dtype, device)
-    if i1.device != i2.device:
-        raise ValueError(f"I1 is on {i1.device} and I2 on {i2.device}")
-    if i1.shape != i2.shape:
-        raise ValueError("I1 and I2 must have the same shape")
-    single = i1.ndim == 3
-    if single:
-        i1, i2 = i1[None], i2[None]
-    if i1.ndim != 4:
-        raise ValueError("images must be [H, W, C] or [B, H, W, C]")
+    with span("ica.align"):
+        config.validate()
+        i1 = _to_tensor(i1, dtype, device)
+        i2 = _to_tensor(i2, dtype, device)
+        if i1.device != i2.device:
+            raise ValueError(f"I1 is on {i1.device} and I2 on {i2.device}")
+        if i1.shape != i2.shape:
+            raise ValueError("I1 and I2 must have the same shape")
+        single = i1.ndim == 3
+        if single:
+            i1, i2 = i1[None], i2[None]
+        if i1.ndim != 4:
+            raise ValueError("images must be [H, W, C] or [B, H, W, C]")
 
-    b = i1.shape[0]
-    if p0 is None:
-        p0 = torch.zeros((b, 8), dtype=dtype, device=i1.device)
-    else:
-        p0 = pad_params(_to_tensor(p0, dtype, i1.device))
-        if p0.ndim == 1:
-            p0 = p0.expand(b, 8)
+        b = i1.shape[0]
+        if p0 is None:
+            p0 = torch.zeros((b, 8), dtype=dtype, device=i1.device)
+        else:
+            p0 = pad_params(_to_tensor(p0, dtype, i1.device))
+            if p0.ndim == 1:
+                p0 = p0.expand(b, 8)
 
-    res = _align_impl(i1, i2, p0, config)
-    if single:
-        res = AlignResult(p=res.p[0], error=res.error[0], niters=res.niters[0],
-                          di=res.di[0], iw=res.iw[0], valid=res.valid[0],
-                          diverged=res.diverged[0])
-    return res
+        res = _align_impl(i1, i2, p0, config)
+        if single:
+            res = AlignResult(p=res.p[0], error=res.error[0], niters=res.niters[0],
+                              di=res.di[0], iw=res.iw[0], valid=res.valid[0],
+                              diverged=res.diverged[0],
+                              level_niters=tuple(n[0] for n in res.level_niters))
+        return res
 
 
 def warp(image, p, config: AlignConfig = AlignConfig(), device=None) -> torch.Tensor:

@@ -48,6 +48,7 @@ from ..ops.transforms import (
     transform_points,
 )
 from ..ops.warp import bicubic_sample, domain_mask
+from ..utils.profiling import span
 
 __all__ = ["ICState", "ic_solve", "iterate", "effective_delta"]
 
@@ -236,20 +237,21 @@ def ic_solve(
     if delta_cap:
         delta = effective_delta(delta, hh, ww)
 
-    ix, iy = central_gradients(i1)
-    if nanifoutside and delta > 0:
-        band = boundary_band_mask(hh, ww, delta, device=i1.device).to(dt)[None, :, :, None]
-        ix = ix * band
-        iy = iy * band
-    gxx, gxy, gyy = grad_moments(ix, iy)
+    with span("ica.level.setup"):
+        ix, iy = central_gradients(i1)
+        if nanifoutside and delta > 0:
+            band = boundary_band_mask(hh, ww, delta, device=i1.device).to(dt)[None, :, :, None]
+            ix = ix * band
+            iy = iy * band
+        gxx, gxy, gyy = grad_moments(ix, iy)
 
-    scale = param_preconditioner(ttype, hh, ww) if precondition else None
-    if fused:
-        system = _fused_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust,
-                               nanifoutside, delta)
-    else:
-        system = _plain_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust,
-                               nanifoutside, delta, scale, hessian_chunk)
+        scale = param_preconditioner(ttype, hh, ww) if precondition else None
+        if fused:
+            system = _fused_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust,
+                                   nanifoutside, delta)
+        else:
+            system = _plain_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust,
+                                   nanifoutside, delta, scale, hessian_chunk)
     return iterate(system, p0.to(dt), ttype, hh, ww, tol=tol, max_iter=max_iter, robust=robust,
                    lam=lam, scale=scale, divergence_guard=divergence_guard, verbose=verbose,
                    collect_trace=collect_trace)
@@ -283,29 +285,32 @@ def iterate(system, p0: torch.Tensor, ttype: TransformType, hh: int, ww: int, *,
         return torch.where(act, nxt, lam_cur)
 
     def body(s: ICState) -> ICState:
-        h, b = system(s.p, s.lam)
-        act = s.active
-        lam_next = anneal(s.lam, act)
-        dp, err = solve_normal(h, b, live, precond=scale)
-        p_new = compose_inverse(s.p, dp, ttype)
-        if divergence_guard:
-            bad = act & _lost_overlap(p_new, ttype, hh, ww)
-            p_new = torch.where(bad[:, None], p0p, p_new)
-        else:
-            bad = torch.zeros_like(act)
-        p = torch.where(act[:, None], p_new, s.p)
-        error = torch.where(act, err, s.error)
-        niters = s.niters + act.to(s.niters.dtype)
-        still = act & (err > tol) & ~bad
-        if s.it + 1 >= max_iter:
-            still = torch.zeros_like(still)
-        if agree is not None:
-            still = agree(still)
+        with span("ica.trip.system"):
+            h, b = system(s.p, s.lam)
+        with span("ica.trip.update"):
+            act = s.active
+            lam_next = anneal(s.lam, act)
+            dp, err = solve_normal(h, b, live, precond=scale)
+            p_new = compose_inverse(s.p, dp, ttype)
+            if divergence_guard:
+                bad = act & _lost_overlap(p_new, ttype, hh, ww)
+                p_new = torch.where(bad[:, None], p0p, p_new)
+            else:
+                bad = torch.zeros_like(act)
+            p = torch.where(act[:, None], p_new, s.p)
+            error = torch.where(act, err, s.error)
+            niters = s.niters + act.to(s.niters.dtype)
+            still = act & (err > tol) & ~bad
+            if s.it + 1 >= max_iter:
+                still = torch.zeros_like(still)
+            if agree is not None:
+                still = agree(still)
+            diverged = s.diverged | bad
         if verbose:
             print(f"iter {s.it}: |Dp|={error.tolist()} p={p.tolist()} "
                   f"lambda={lam_next.tolist()}")
         return ICState(p=p, error=error, lam=lam_next, it=s.it + 1, niters=niters,
-                       active=still, diverged=s.diverged | bad)
+                       active=still, diverged=diverged)
 
     dev = p0.device
     state = ICState(
@@ -324,6 +329,11 @@ def iterate(system, p0: torch.Tensor, ttype: TransformType, hh: int, ww: int, *,
             hist.append((state.error, state.p, state.lam))
         errs, ps, lams = zip(*hist)
         return state, (torch.stack(errs), torch.stack(ps), torch.stack(lams))
-    while bool(state.active.any()):   # the per-iteration host sync
-        state = body(state)
+    with span("ica.trip.sync"):
+        going = bool(state.active.any())   # the per-iteration host sync
+    while going:
+        with span("ica.trip"):
+            state = body(state)
+            with span("ica.trip.sync"):
+                going = bool(state.active.any())
     return state

@@ -15,6 +15,7 @@ from .. import constants as cts
 from ..ops.normal_equations import RobustLoss
 from ..ops.pyramid import build_pyramid, pyramid_shapes
 from ..ops.transforms import TransformType, pad_params, zoom_in_params
+from ..utils.profiling import span
 from .ic import ic_solve
 
 __all__ = ["pyramidal_solve"]
@@ -55,8 +56,9 @@ def pyramidal_solve(
     """
     _, hh, ww, _ = i1.shape
     shapes = pyramid_shapes(hh, ww, nscales, nu)
-    p1 = build_pyramid(i1, nscales, nu, pyramid_method)
-    p2 = build_pyramid(i2, nscales, nu, pyramid_method)
+    with span("ica.pyramid"):
+        p1 = build_pyramid(i1, nscales, nu, pyramid_method)
+        p2 = build_pyramid(i2, nscales, nu, pyramid_method)
 
     p = pad_params(p0.to(i1.dtype))
     for s in range(1, nscales):
@@ -66,14 +68,15 @@ def pyramidal_solve(
     per_scale, traces = [], []
     state = None
     for s in range(nscales - 1, -1, -1):
-        state = ic_solve(
-            p1[s], p2[s], p, ttype,
-            tol=tol, max_iter=max_iter, robust=robust, lam=lam,
-            nanifoutside=nanifoutside, delta=delta,
-            precondition=precondition, hessian_chunk=hessian_chunk,
-            verbose=verbose, collect_trace=collect_trace,
-            divergence_guard=divergence_guard, delta_cap=delta_cap,
-        )
+        with span("ica.level"):
+            state = ic_solve(
+                p1[s], p2[s], p, ttype,
+                tol=tol, max_iter=max_iter, robust=robust, lam=lam,
+                nanifoutside=nanifoutside, delta=delta,
+                precondition=precondition, hessian_chunk=hessian_chunk,
+                verbose=verbose, collect_trace=collect_trace,
+                divergence_guard=divergence_guard, delta_cap=delta_cap,
+            )
         if collect_trace:
             state, trace = state
             traces.append(trace)

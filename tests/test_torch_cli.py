@@ -26,9 +26,10 @@ from inverse_compositional_algorithm_tpu.ops.warp import bicubic_sample
 from inverse_compositional_algorithm_tpu.utils import imageio as jio
 from inverse_compositional_algorithm_tpu_torch import cli as tcli
 from inverse_compositional_algorithm_tpu_torch import config as tconfig
+from inverse_compositional_algorithm_tpu_torch.models.api import align as ica_align
 from inverse_compositional_algorithm_tpu_torch.eval.plots import plot_record
 from inverse_compositional_algorithm_tpu_torch.utils import imageio as tio
-from inverse_compositional_algorithm_tpu_torch.utils.profiling import StageTimer, trace
+from inverse_compositional_algorithm_tpu_torch.utils.profiling import trace
 from inverse_compositional_algorithm_tpu_torch.utils.validation import valid_values
 
 torch.set_num_threads(1)
@@ -150,12 +151,15 @@ def test_valid_values():
 
 
 def test_stage_timer_and_trace(tmp_path):
-    timer = StageTimer()
+    """`trace()` writes a Chrome trace of a call with the program's stage
+    spans (`ica.*`) and yields the profiler with the per-op sums."""
+    rng = np.random.default_rng(3)
+    img = torch.tensor(rng.uniform(0, 255, (1, 32, 40, 3)), dtype=torch.float32)
+    cfg = tconfig.AlignConfig(nscales=2, delta=2)
     with trace(str(tmp_path)) as prof:
-        for _ in range(2):
-            with timer("matmul"):
-                timer.observe(torch.ones(64, 64) @ torch.ones(64, 64))
-    assert timer.counts["matmul"] == 2 and timer.totals["matmul"] > 0
-    assert timer.report().startswith("matmul")
-    assert os.path.getsize(tmp_path / "trace.json") > 0
-    assert any("matmul" in e.key or "mm" in e.key for e in prof.key_averages())
+        ica_align(img, torch.roll(img, 1, dims=2), cfg)
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"ica.align", "ica.pyramid", "ica.level", "ica.level.setup", "ica.trip",
+            "ica.trip.system", "ica.trip.update", "ica.trip.sync", "ica.final_warp"} <= names
+    assert any(e.key == "aten::mul" for e in prof.key_averages())

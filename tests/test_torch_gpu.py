@@ -349,6 +349,57 @@ def test_align_on_cuda_matches_cpu(cuda):
         assert torch.equal(gpu.diverged.cpu(), cpu.diverged)
 
 
+def test_spans_share_the_device_clock(cuda):
+    """Under torch.profiler the program's spans and the card's kernels share
+    one clock: every K1 kernel of a call lies inside the device-side image
+    of an `ica.trip.system` span, each image starts no earlier than its host
+    span, and the call's `ica.trip` spans number its K1 launches.
+
+    The profiler maps the card's timestamps onto the host's clock, and the
+    two drift apart over a window; how far shows where a kernel reads as
+    starting before the runtime call that launched it, which no kernel can.
+    An image may precede its span by that much, and that much is held
+    under a millisecond, a tenth of a trip at the benchmark's sizes."""
+    base = ica.ops.pyramid.gaussian_blur(rand((1, 97, 146, 3), 7, "cpu"), 2.0)
+    p = torch.tensor([[0.01, -0.005, 1.5, 0.008, -0.01, -1.0, 5e-5, -3e-5]])
+    i1 = ica.ops.warp.bicubic_sample(base, *ica.transform_grid(p, T.HOMOGRAPHY, 97, 146))
+    i1, i2 = i1.expand(4, -1, -1, -1).to(cuda), base.expand(4, -1, -1, -1).to(cuda)
+    cfg = ica.AlignConfig(transform=T.HOMOGRAPHY, robust=R.CHARBONNIER, nscales=3)
+    ica.align(i1, i2, cfg)
+    torch.cuda.synchronize()
+    before = k1.LAUNCHES
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ica.align(i1, i2, cfg)
+        torch.cuda.synchronize()
+    launches = k1.LAUNCHES - before
+    host, images, kernels, launched, started = {}, [], [], {}, []
+    for ev in prof.profiler.kineto_results.events():
+        row = (ev.start_ns(), ev.start_ns() + ev.duration_ns())
+        if ev.device_type() == torch.autograd.DeviceType.CPU:
+            host.setdefault(ev.name(), []).append(row)
+            if not ev.is_user_annotation() and ev.name().startswith("cu"):
+                launched[ev.correlation_id()] = row[0]
+        elif ev.name() == "ica.trip.system":
+            images.append(row)
+        elif not ev.is_user_annotation():
+            started.append((ev.correlation_id(), row[0]))
+            if "fused_iter_kernel" in ev.name():
+                kernels.append(row)
+    slack = max([0] + [launched[c] - t for c, t in started if c in launched])
+    print(f"{launches} K1 launches, {len(host.get('ica.trip', []))} ica.trip spans, "
+          f"{len(images)} ica.trip.system images, {len(kernels)} K1 kernels, "
+          f"clock slack {slack} ns")
+    assert launches > 0 and len(host["ica.trip"]) == launches
+    assert len(kernels) == launches
+    assert len(images) == len(host["ica.trip.system"]) == launches
+    assert slack < 1_000_000
+    for (hs, _), (ds, de) in zip(sorted(host["ica.trip.system"]), sorted(images)):
+        assert hs - slack <= ds < de
+    for ks, ke in kernels:
+        assert any(ds <= ks and ke <= de for ds, de in images)
+
+
 @pytest.mark.parametrize("shape", [(2, 3, 37, 70), (1, 1, 4, 4), (8, 3, 388, 584),
                                    (1, 3, 45, 135), (16, 3, 388, 584), (1, 3, 2160, 3840)])
 def test_warp_floor(cuda, shape):
