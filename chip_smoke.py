@@ -6,8 +6,9 @@
 Needs one CUDA device and nvcc. It builds the kernels from the sources in
 this checkout (failing on a register spill in the compiler's report),
 holds each kernel (K1 fused iteration, K3 warp, K4 moments, K5 warp
-floor, and K1a, K1's ablation variants) against its plain PyTorch version
-at the flagship's shapes, and K1 and K3 also on a 69-degree rotation and
+floor, K1a, K1's ablation variants, and K6, the solver trip's update at
+batch 1024, robust HOMOGRAPHY and quadratic EUCLIDEAN) against its plain
+PyTorch version at the flagship's shapes, and K1 and K3 also on a 69-degree rotation and
 a diverged homography (NaN positions equal, reruns bitwise equal; K1 too
 on ragged and coarse frames and at batch 1 and 16; K5 on both of its
 load paths, TMA and plain, at ragged, gray, minimal and 4K frames), then
@@ -63,6 +64,9 @@ import numpy as np
 B, H, W, C = 8, 388, 584, 3          # the flagship batch (eval/benchmarks.py:1-10)
 COARSE = (25, 37)                    # its coarsest pyramid level
 KERNEL_TOL = 2e-4                    # moments, normalized by max(|ref|, 1)
+TRIP_TOL = 1e-5                      # K6's state, normalized by max(|ref|, 1)
+TRIP_CORNER_TOL = 1e-3               # px, K6's p and motion matrices against the plain update
+TRIP_FLOPS = 6000                    # K6's flops a pair: the assembly's ~5800, the 8x8 solve
 WARP_TOL = 2e-3                      # warp of 0..255 images, absolute
 CORNER_TOL_GT = 0.1                  # px, align against the ground truth
 CORNER_TOL_CPU = 1e-2                # px, CUDA align against the CPU plain align
@@ -96,10 +100,13 @@ def main() -> int:
     )
     from inverse_compositional_algorithm_tpu_torch.models import layers
     from inverse_compositional_algorithm_tpu_torch.ops.kernels import (
-        _build, fused_iter as k1, normal_eq as k4, warp as k3, warp_floor as k5,
+        _build, fused_iter as k1, normal_eq as k4, trip_update as k6, warp as k3,
+        warp_floor as k5,
     )
     from inverse_compositional_algorithm_tpu_torch.ops.normal_equations import grad_moments
-    from inverse_compositional_algorithm_tpu_torch.ops.transforms import transform_points
+    from inverse_compositional_algorithm_tpu_torch.ops.transforms import (
+        param_preconditioner, transform_points,
+    )
     from inverse_compositional_algorithm_tpu_torch.parallel.ranks import drive, run_launch
     from inverse_compositional_algorithm_tpu_torch.parallel.spawn import run_ranks
     from inverse_compositional_algorithm_tpu_torch.utils.profiling import device_ms
@@ -116,11 +123,19 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"phase 2 build: {build_s:.2f} s (nvcc {_build.BUILD_INFO['seconds']:.2f} s, "
         f"compiled={_build.BUILD_INFO['compiled']})")
-    for line in _build.BUILD_INFO["log"].splitlines():
+    ptxas = _build.BUILD_INFO["log"]
+    require("trip_update_kernel" in ptxas, "no compiler report of the library to check")
+    func = ""
+    for line in ptxas.splitlines():
+        named = re.search(r"(?:entry function|Function properties for) '?([\w$]+)", line)
+        func = named.group(1) if named else func
         if "entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", file=sys.stderr)
+            if "trip_update" in func and not named:
+                log(f"phase 2 ptxas {func}: {line.strip()}")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        require(spill is None or spill.groups() == ("0", "0"), f"ptxas reports a spill: {line}")
+        require(spill is None or spill.groups() == ("0", "0"),
+                f"ptxas reports a spill in {func}: {line}")
 
     def cuda_ms(fn, n: int) -> float:
         """Mean ms of n back-to-back calls between CUDA events, after a warm-up."""
@@ -308,6 +323,125 @@ def main() -> int:
                       nbytes(plan.i2p, plan.tplp, mat, lam) + B * 5 * 64 * 4,  # out: [B, 5, 8, 8]
                       B * h * w * benchmarks.fused_iter_flops_per_pixel(C))
 
+    def corner_err(pa, pb, ttype, h=H, w=W):
+        xs, ys = ([0.0, w - 1.0, 0.0, w - 1.0], [0.0, 0.0, h - 1.0, h - 1.0])
+        ax, ay = transform_points(pa.double(), ttype, xs, ys)
+        bx, by = transform_points(pb.double(), ttype, xs, ys)
+        return float(torch.hypot(ax - bx, ay - by).max())
+
+    # ---- phase 5b: K6 trip update ----
+    # One trip of a solve near its answer, at batch 1024 on the flagship's
+    # 97x146 level: K1's moments of synthetic pairs, a state 0.05 px off the
+    # ground truth with a fifth of the pairs already done. The robust
+    # homography anneals lambda and assembles H from the moments; the
+    # quadratic Euclidean takes K4's hoisted Hessian. p and the motion
+    # matrices are held by their corners' displacement, which weighs each
+    # parameter by how far it moves the frame.
+    kb, kh, kw = 1024, 97, 146
+    kbase = pyramid.gaussian_blur(rand_images(1, kh, kw), 2.0).expand(kb, kh, kw, C)
+    kdelta = min(10, (min(kh, kw) - 1) // 4)
+    band = gradients.boundary_band_mask(kh, kw, kdelta, device=dev)[None, :, :, None]
+    # Each live parameter's change that moves a corner by about 1 px.
+    k6_px = {T.HOMOGRAPHY: [1.0 / kw, 1.0 / kw, 1.0, 1.0 / kw, 1.0 / kw, 1.0,
+                            1.0 / kw ** 2, 1.0 / kw ** 2],
+             T.EUCLIDEAN: [1.0, 1.0, 1.0 / kw]}
+
+    def mat_corner_err(ma, mb):
+        """Max px between the frame's corners mapped by [B, 3, 3] matrices."""
+        xy = torch.tensor([[0.0, 0.0, 1.0], [kw - 1.0, 0.0, 1.0], [0.0, kh - 1.0, 1.0],
+                           [kw - 1.0, kh - 1.0, 1.0]], dtype=torch.float64, device=dev)
+        qa, qb = xy @ ma.double().transpose(1, 2), xy @ mb.double().transpose(1, 2)
+        return float((qa[..., :2] / qa[..., 2:] - qb[..., :2] / qb[..., 2:]).norm(dim=-1).max())
+
+    for ttype, robust in ((T.HOMOGRAPHY, R.CHARBONNIER), (T.EUCLIDEAN, None)):
+        what = f"{ttype.name} {robust.name if robust else 'QUADRATIC'}"
+        p_gt = motion(ttype, kb, kh, kw)
+        ki1 = warp.bicubic_sample(kbase, *ica.transform_grid(p_gt, ttype, kh, kw))
+        kix, kiy = gradients.central_gradients(ki1)
+        kix, kiy = kix * band, kiy * band
+        kg = grad_moments(kix, kiy)
+        kplan = k1.plan_fused_iter(ki1, kbase.contiguous(), kix, kiy, *kg,
+                                   robust=robust is not None)
+        step = ica.pad_params(torch.tensor(k6_px[ttype], device=dev))
+        kp = p_gt + torch.tensor(rng.uniform(-0.05, 0.05, (kb, 8)), dtype=torch.float32,
+                                 device=dev) * step
+        klam = torch.tensor(rng.choice([80.0, 42.5, 5.5, 5.0], kb), dtype=torch.float32,
+                            device=dev)
+        km = k1.fused_iter_moments(kplan.i2p, kplan.tplp, ica.params_to_matrix(kp, ttype),
+                                   ttype is T.HOMOGRAPHY, klam, kh, kw, robust, True, kdelta)
+        h_quad = None if robust else k4.fused_hessian(*kg, ttype=ttype)
+        kstate = ica.ICState(
+            p=kp, error=torch.full((kb,), 1e10, device=dev), lam=klam, it=3,
+            niters=torch.full((kb,), 3, dtype=torch.int32, device=dev),
+            active=torch.tensor(rng.uniform(size=kb) > 0.2, device=dev),
+            diverged=torch.zeros(kb, dtype=torch.bool, device=dev))
+        ktrip = k6.plan_trip(p_gt.clone(), ttype, kh, kw, tol=1e-3, max_iter=30,
+                             anneal=robust is not None,
+                             scale=param_preconditioner(ttype, kh, kw),
+                             divergence_guard=True, kernel=True, h_quad=h_quad)
+
+        def k6_state():
+            return ica.ICState(p=kstate.p.clone(), error=kstate.error.clone(),
+                               lam=kstate.lam.clone(), it=kstate.it,
+                               niters=kstate.niters.clone(), active=kstate.active.clone(),
+                               diverged=kstate.diverged.clone())
+
+        def k6_plain():
+            b = k4._assemble_b(km[:, -2:], ttype, kh, kw)
+            h = h_quad if h_quad is not None else k4._assemble_h(km[:, :3], ttype, kh, kw)
+            return k6.trip_update_ref(h, b, kstate, ktrip)
+
+        want = k6_plain()
+        got, again = k6_state(), k6_state()
+        k6.trip_update(km, got, ktrip)
+        going = ktrip.count.tolist()
+        ktrip.count.zero_()
+        k6.trip_update(km, again, ktrip)
+        torch.cuda.synchronize()
+        k6_err = {}
+        for name, w in zip(("p", "error", "lam", "niters", "active", "diverged"), want):
+            g = getattr(got, name)
+            require(torch.equal(g, getattr(again, name)), f"K6 {what} {name}: reruns differ")
+            if g.is_floating_point():
+                k6_err[name] = float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+            else:
+                require(torch.equal(g, w), f"K6 {what} {name} differs from the plain version")
+        want_mat = ica.params_to_matrix(want[0], ttype)
+        k6_err["mat"] = float((ktrip.mat - want_mat).abs().max())
+        require(going == [0, int(want[4].sum())] and going == ktrip.count.tolist(),
+                f"K6 {what} count {going} against {int(want[4].sum())} pairs going on")
+        require(max(k6_err.values()) <= TRIP_TOL,
+                f"K6 {what}: normalized err {k6_err} > {TRIP_TOL}")
+        moved = corner_err(want[0], kstate.p, ttype, kh, kw)
+        corner = {"p": corner_err(got.p, want[0], ttype, kh, kw),
+                  "mat": mat_corner_err(ktrip.mat, want_mat)}
+        require(max(corner.values()) <= TRIP_CORNER_TOL,
+                f"K6 {what}: corner err {corner} px > {TRIP_CORNER_TOL}")
+        log(f"phase 5b K6 {kb}x{kh}x{kw} {what}: normalized err {k6_err}, corner err "
+            f"p {corner['p']:.3g} px, mat {corner['mat']:.3g} px (the step moved corners "
+            f"{moved:.3g} px), going on {int(want[4].sum())} of {kb}")
+        if robust is None:
+            continue
+        kernels["trip_update"] = dict(
+            route="cuda",
+            source="inverse_compositional_algorithm_tpu_torch/ops/kernels/csrc/trip_update.cu",
+            replaces="none: the solver trip's update after K1 (models/ic.py::iterate, ~480 "
+                     "ATen launches a trip before it)",
+            max_abs_err=max(k6_err.values()),
+            ms=cuda_ms(lambda: k6.trip_update(km, got, ktrip), 50),
+            device_ms=dev_ms(lambda: k6.trip_update(km, got, ktrip), 50, "K6"),
+            cold_device_ms=dev_ms(lambda: k6.trip_update(km, got, ktrip), 50, "K6",
+                                  cold=True),
+            plain_ms=cuda_ms(k6_plain, 10),
+            library_ms=None)          # no PyTorch call computes this chain
+        # Reads: the 5x5 corner of each 8x8 moment block (five 32-byte rows),
+        # the contraction tensors, the state; writes: the state and the
+        # matrices. p0 is read only by a reverted pair.
+        bound(kernels["trip_update"],
+              kb * km.shape[1] * 5 * 8 * 4 + nbytes(ktrip.t_h, ktrip.t_b)
+              + 2 * nbytes(*want) + nbytes(ktrip.mat),
+              kb * TRIP_FLOPS)
+
     # ---- phase 6: the main path end to end ----
     base = pyramid.gaussian_blur(rand_images(1, H, W), 2.0)[0]
 
@@ -317,16 +451,10 @@ def main() -> int:
         i1 = warp.bicubic_sample(base.expand(B, H, W, C), gx, gy)
         return i1, base.expand(B, H, W, C).contiguous(), p_gt
 
-    def corner_err(pa, pb, ttype, h=H, w=W):
-        xs, ys = ([0.0, w - 1.0, 0.0, w - 1.0], [0.0, 0.0, h - 1.0, h - 1.0])
-        ax, ay = transform_points(pa.double(), ttype, xs, ys)
-        bx, by = transform_points(pb.double(), ttype, xs, ys)
-        return float(torch.hypot(ax - bx, ay - by).max())
-
     # Each kernel's launch count: the wrapper's module and its counter.
     counters = {"fused_iter_moments": (k1, "LAUNCHES"), "warp_planar": (k3, "LAUNCHES"),
                 "weighted_moments": (k4, "LAUNCHES"), "warp_floor": (k5, "LAUNCHES"),
-                "fused_iter_ablate": (k1, "ABLATE_LAUNCHES")}
+                "fused_iter_ablate": (k1, "ABLATE_LAUNCHES"), "trip_update": (k6, "LAUNCHES")}
     launches = {k: 0 for k in counters}
 
     def window(fn):
@@ -362,6 +490,9 @@ def main() -> int:
             f"flagship align did not launch K1 and K3: {fl}")
     require(de["weighted_moments"] > 0 and de["fused_iter_moments"] > 0,
             f"default align did not launch K4 and K1: {de}")
+    for name, c in (("flagship", fl), ("default", de)):
+        require(c["trip_update"] == c["fused_iter_moments"],
+                f"{name} align: a trip did not take K6: {c}")
 
     for name, run in runs.items():
         cpu = ica.align(run["i1"][:2].cpu(), run["i2"][:2].cpu(), run["cfg"])
@@ -695,7 +826,7 @@ def main() -> int:
         kernels[k]["launches"] = launches[k]
         require(launches[k] > 0, f"{k} was not launched by any entry point")
     order = ["fused_iter_moments", "warp_planar", "weighted_moments", "warp_floor",
-             "fused_iter_ablate"]
+             "fused_iter_ablate", "trip_update"]
     fields = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms",
               "cold_device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [dict(name=k, **{f: kernels[k][f] for f in fields})

@@ -10,23 +10,26 @@ One loop serves both algorithm variants of the reference:
 Each pair converges, anneals and can be frozen by the divergence guard on
 its own. The device of the images selects how the normal system of an
 iteration is formed: on CUDA, for float32 with the preconditioner, by the
-fused iteration kernel (K1, plus K4 for the quadratic Hessian); on the CPU,
+fused iteration kernel (K1, plus K4 for the quadratic Hessian), and the
+rest of the iteration by one launch of the fused update (K6); on the CPU,
 and on CUDA for any other dtype or precondition=False, by the plain op
-chain (warp -> residual -> weights -> hessian/rhs).
+chain (warp -> residual -> weights -> hessian/rhs, then solve -> compose ->
+guard).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from .. import constants as cts
 from ..ops.gradients import boundary_band_mask, central_gradients
 from ..ops.kernels import _build
-from ..ops.kernels.fused_iter import fused_iter_moments, plan_fused_iter
+from ..ops.kernels.fused_iter import bind_fused_iter, plan_fused_iter
 from ..ops.kernels.normal_eq import _assemble_b, _assemble_h, fused_hessian
+from ..ops.kernels.trip_update import plan_trip, still_count, trip_update, trip_update_ref
 from ..ops.normal_equations import (
     RobustLoss,
     grad_moments,
@@ -34,23 +37,19 @@ from ..ops.normal_equations import (
     residual_moments,
     rhs,
     robust_weights,
-    solve_normal,
 )
 from ..ops.transforms import (
     TransformType,
-    compose_inverse,
     jacobian_fields,
-    nparams,
     pad_params,
     param_preconditioner,
     params_to_matrix,
     transform_grid,
-    transform_points,
 )
 from ..ops.warp import bicubic_sample, domain_mask
 from ..utils.profiling import span
 
-__all__ = ["ICState", "ic_solve", "iterate", "effective_delta"]
+__all__ = ["ICState", "ic_solve", "start_loop", "iterate", "effective_delta"]
 
 
 @dataclass
@@ -72,22 +71,6 @@ def effective_delta(delta: int, height: int, width: int) -> int:
     unchanged to every level, src/inverse_compositional_algorithm.py:340-372,
     which can mask every gradient pixel there)."""
     return min(int(delta), max(0, (min(height, width) - 1) // 4))
-
-
-def _lost_overlap(p: torch.Tensor, ttype: TransformType, height: int, width: int,
-                  margin: float = 0.5) -> torch.Tensor:
-    """[B] bool: every corner/center probe of x'(x; p) lands outside the frame
-    inflated by `margin` of its size (or is non-finite), or p is non-finite."""
-    xs = [0.0, width - 1.0, 0.0, width - 1.0, (width - 1) / 2.0]
-    ys = [0.0, 0.0, height - 1.0, height - 1.0, (height - 1) / 2.0]
-    gx, gy = transform_points(p, ttype, xs, ys)
-    mx, my = margin * width, margin * height
-    ok = (
-        (gx >= -mx) & (gx <= (width - 1) + mx)
-        & (gy >= -my) & (gy <= (height - 1) + my)
-        & torch.isfinite(gx) & torch.isfinite(gy)
-    )
-    return ~ok.any(dim=-1) | ~torch.isfinite(p).all(dim=-1)
 
 
 def _masked_residual(iw: torch.Tensor, valid: torch.Tensor, i1: torch.Tensor,
@@ -147,13 +130,18 @@ def _plain_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside,
     return system
 
 
-def _fused_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside, delta,
-                  scale=None, hessian_chunk: int = 16384, y_offset: int = 0, reduce=None):
-    """CUDA path: system(p, lam) -> (H, b) in the preconditioned metric, from
-    one fused-iteration kernel launch, which forms the sampling coordinates
-    from the motion matrix itself (the quadratic Hessian comes from the
-    moment kernel, once). On CPU tensors the same code runs the kernels'
-    plain versions.
+class _fused_system:
+    """CUDA path: the system in the preconditioned metric from one fused-
+    iteration kernel launch, which forms the sampling coordinates from the
+    motion matrix itself (the quadratic Hessian comes from the moment
+    kernel, once). On CPU tensors the same code runs the kernels' plain
+    versions.
+
+    `moments(mat, lam)` launches K1 at [B, 3, 3] motion matrices into the
+    level's one output and sums it over the tile group: the trip's system
+    for the fused update (K6), with `h_quad`, the quadratic path's hoisted
+    Hessian (None when robust). Called as system(p, lam), it gives the
+    assembled (H, b) at parameters p, as `_plain_system`'s system does.
 
     For a band of rows y_offset .. of the frame i2 (`parallel.tiled`), K1
     takes the band's global rows and `reduce` sums its [B, K, 8, 8] moments
@@ -161,31 +149,35 @@ def _fused_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside, de
     takes no row offset, so a band's quadratic Hessian is the plain
     `hessian` on global-row Jacobians (preconditioned by `scale`), reduced
     once."""
-    _, h_loc, ww, _ = i1.shape
-    hh = i2.shape[1]
-    tiled = y_offset != 0 or reduce is not None
-    reduce = reduce or _identity
-    is_robust = robust is not RobustLoss.QUADRATIC
-    plan = plan_fused_iter(i1, i2, ix, iy, gxx, gxy, gyy, robust=is_robust)
-    h_quad = None
-    if not is_robust and tiled:
-        jx, jy = jacobian_fields(ttype, h_loc, ww, dtype=i1.dtype, scale=scale,
-                                 y_offset=y_offset, device=i1.device)
-        h_quad = reduce(hessian(gxx, gxy, gyy, jx, jy, chunk=hessian_chunk))
-    elif not is_robust:
-        h_quad = fused_hessian(gxx, gxy, gyy, ttype=ttype)
-    projective = ttype is TransformType.HOMOGRAPHY
 
-    def system(p, lam):
-        m = reduce(fused_iter_moments(plan.i2p, plan.tplp, params_to_matrix(p, ttype), projective,
-                                      lam, hh, ww, robust if is_robust else None, nanifoutside,
-                                      delta, y_offset=y_offset))
-        if is_robust:
-            return (_assemble_h(m[:, :3], ttype, hh, ww),
-                    _assemble_b(m[:, 3:], ttype, hh, ww))
-        return h_quad, _assemble_b(m, ttype, hh, ww)
+    def __init__(self, i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside, delta,
+                 scale=None, hessian_chunk: int = 16384, y_offset: int = 0, reduce=None):
+        _, h_loc, ww, _ = i1.shape
+        hh = i2.shape[1]
+        tiled = y_offset != 0 or reduce is not None
+        self._reduce = reduce = reduce or _identity
+        self._ttype, self._hh, self._ww = ttype, hh, ww
+        self._robust = robust if robust is not RobustLoss.QUADRATIC else None
+        plan = plan_fused_iter(i1, i2, ix, iy, gxx, gxy, gyy, robust=self._robust is not None)
+        self.h_quad = None
+        if self._robust is None and tiled:
+            jx, jy = jacobian_fields(ttype, h_loc, ww, dtype=i1.dtype, scale=scale,
+                                     y_offset=y_offset, device=i1.device)
+            self.h_quad = reduce(hessian(gxx, gxy, gyy, jx, jy, chunk=hessian_chunk))
+        elif self._robust is None:
+            self.h_quad = fused_hessian(gxx, gxy, gyy, ttype=ttype)
+        self._k1 = bind_fused_iter(plan, ttype is TransformType.HOMOGRAPHY, hh, ww, self._robust,
+                                   nanifoutside, delta, y_offset=y_offset)
 
-    return system
+    def moments(self, mat, lam):
+        return self._reduce(self._k1(mat, lam))
+
+    def __call__(self, p, lam):
+        m = self.moments(params_to_matrix(p, self._ttype).contiguous(), lam)
+        if self._robust is not None:
+            return (_assemble_h(m[:, :3], self._ttype, self._hh, self._ww),
+                    _assemble_b(m[:, 3:], self._ttype, self._hh, self._ww))
+        return self.h_quad, _assemble_b(m, self._ttype, self._hh, self._ww)
 
 
 def ic_solve(
@@ -221,15 +213,16 @@ def ic_solve(
       collect_trace: run exactly max_iter steps and also return the history
         (error [T, B], p [T, B, 8], lam [T, B]); lambda is recorded after the
         anneal, the C++ verbose convention.
-      divergence_guard: a pair whose warp lost the frame (_lost_overlap)
+      divergence_guard: a pair whose warp lost the frame (`lost_overlap`)
         reverts to p0, stops iterating and is flagged `diverged`.
       delta_cap: cap the boundary band per level (`effective_delta`).
 
     Returns:
       ICState, or (ICState, (error_hist, p_hist, lam_hist)) with collect_trace.
 
-    The loop's condition reads `active` on the host: one device sync per
-    iteration (the JAX package's lax.while_loop has none).
+    The loop's condition reads on the host whether any pair is active (on
+    the kernel path, K6's count): one device sync per iteration (the JAX
+    package's lax.while_loop has none).
     """
     _, hh, ww, _ = i1.shape
     dt = i1.dtype
@@ -252,88 +245,101 @@ def ic_solve(
         else:
             system = _plain_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust,
                                    nanifoutside, delta, scale, hessian_chunk)
-    return iterate(system, p0.to(dt), ttype, hh, ww, tol=tol, max_iter=max_iter, robust=robust,
-                   lam=lam, scale=scale, divergence_guard=divergence_guard, verbose=verbose,
-                   collect_trace=collect_trace)
+        plan, state = start_loop(system, p0.to(dt), ttype, hh, ww, tol=tol, max_iter=max_iter,
+                                 robust=robust, lam=lam, scale=scale,
+                                 divergence_guard=divergence_guard)
+    return iterate(system, plan, state, verbose=verbose, collect_trace=collect_trace)
 
 
-def iterate(system, p0: torch.Tensor, ttype: TransformType, hh: int, ww: int, *, tol: float,
-            max_iter: int, robust: RobustLoss, lam: float, scale, divergence_guard: bool,
-            verbose: bool = False, collect_trace: bool = False, agree=None):
-    """The Gauss-Newton loop of `ic_solve` over `system(p, lam) -> (H, b)`:
-    the per-pair lambda anneal, the solve, the compose and the divergence
-    guard, until no pair is active. `hh`, `ww` are the frame's dims (the
-    guard's probes); `agree(still) -> still`, when given, makes the ranks of
-    a row-tiled solve take one decision on which pairs go on
-    (`parallel.tiled`)."""
+def start_loop(system, p0: torch.Tensor, ttype: TransformType, hh: int, ww: int, *,
+               tol: float, max_iter: int, robust: RobustLoss, lam: float, scale,
+               divergence_guard: bool):
+    """(plan, state) of a level's Gauss-Newton loop over `system`: the
+    update's constants (`TripPlan`; on the kernel path, whose system is a
+    `_fused_system`, also K6's operands) and the first ICState at the
+    padded warm start p0. `hh`, `ww` are the frame's dims (the guard's
+    probes); `scale` the preconditioner or None."""
     bsz = p0.shape[0]
-    dt = p0.dtype
-    is_robust = robust is not RobustLoss.QUADRATIC
-    live = np.zeros(cts.NPARAMS_MAX, np.float64)
-    live[: nparams(ttype)] = 1.0
-    lam0 = lam if lam > 0 else cts.LAMBDA_0
+    dt, dev = p0.dtype, p0.device
+    fused = isinstance(system, _fused_system)
     p0p = pad_params(p0)
-
-    def anneal(lam_cur, act):
-        if not is_robust or lam > 0:
-            return lam_cur
-        # Continuation: shrink lambda toward LAMBDA_N after rho, per pair and
-        # only while that pair is still stepping.
-        nxt = torch.where(lam_cur > cts.LAMBDA_N,
-                          torch.clamp(lam_cur * cts.LAMBDA_RATIO, min=cts.LAMBDA_N),
-                          lam_cur)
-        return torch.where(act, nxt, lam_cur)
-
-    def body(s: ICState) -> ICState:
-        with span("ica.trip.system"):
-            h, b = system(s.p, s.lam)
-        with span("ica.trip.update"):
-            act = s.active
-            lam_next = anneal(s.lam, act)
-            dp, err = solve_normal(h, b, live, precond=scale)
-            p_new = compose_inverse(s.p, dp, ttype)
-            if divergence_guard:
-                bad = act & _lost_overlap(p_new, ttype, hh, ww)
-                p_new = torch.where(bad[:, None], p0p, p_new)
-            else:
-                bad = torch.zeros_like(act)
-            p = torch.where(act[:, None], p_new, s.p)
-            error = torch.where(act, err, s.error)
-            niters = s.niters + act.to(s.niters.dtype)
-            still = act & (err > tol) & ~bad
-            if s.it + 1 >= max_iter:
-                still = torch.zeros_like(still)
-            if agree is not None:
-                still = agree(still)
-            diverged = s.diverged | bad
-        if verbose:
-            print(f"iter {s.it}: |Dp|={error.tolist()} p={p.tolist()} "
-                  f"lambda={lam_next.tolist()}")
-        return ICState(p=p, error=error, lam=lam_next, it=s.it + 1, niters=niters,
-                       active=still, diverged=diverged)
-
-    dev = p0.device
+    if fused:
+        p0p = p0p.contiguous()      # K6 reads it by pointer
+    plan = plan_trip(p0p, ttype, hh, ww, tol=tol, max_iter=max_iter,
+                     anneal=robust is not RobustLoss.QUADRATIC and lam <= 0, scale=scale,
+                     divergence_guard=divergence_guard, kernel=fused,
+                     h_quad=system.h_quad if fused else None)
     state = ICState(
-        p=p0p,
+        # The fused update writes p in place: never into the caller's p0.
+        p=p0p.clone() if fused else p0p,
         error=torch.full((bsz,), 1e10, dtype=dt, device=dev),
-        lam=torch.full((bsz,), lam0, dtype=dt, device=dev),
+        lam=torch.full((bsz,), lam if lam > 0 else cts.LAMBDA_0, dtype=dt, device=dev),
         it=0,
         niters=torch.zeros((bsz,), dtype=torch.int32, device=dev),
         active=torch.ones((bsz,), dtype=torch.bool, device=dev),
         diverged=torch.zeros((bsz,), dtype=torch.bool, device=dev),
     )
+    return plan, state
+
+
+def iterate(system, plan, state: ICState, *, verbose: bool = False, collect_trace: bool = False,
+            agree=None):
+    """The Gauss-Newton loop of `ic_solve` over its `system` from
+    `start_loop`'s (plan, state): the per-pair lambda anneal, the solve, the
+    compose and the divergence guard, until no pair is active.
+    `agree(still) -> still`, when given, makes the ranks of a row-tiled
+    solve take one decision on which pairs go on (`parallel.tiled`).
+
+    On the kernel path (`plan.kernel`: the system is a `_fused_system`),
+    the system gives K1's moments, and one launch of the fused update (K6,
+    `trip_update`) does the rest of the trip in place and counts the pairs that go on: a trip is K1, K6 and one
+    read of that count. Any other system gives (H, b), which the plain op
+    chain (`trip_update_ref`) turns into the next state."""
+
+    def body(s: ICState) -> ICState:
+        if plan.kernel:
+            with span("ica.trip.system"):
+                m = system.moments(plan.mat, s.lam)
+            with span("ica.trip.update"):
+                trip_update(m, s, plan)
+                s = dataclasses.replace(s, it=s.it + 1)
+                if agree is not None:
+                    # The vote keeps K6's still or raises, so K6's count
+                    # stays the count of the pairs that go on.
+                    s.active = agree(s.active)
+        else:
+            with span("ica.trip.system"):
+                h, b = system(s.p, s.lam)
+            with span("ica.trip.update"):
+                p, error, lam_next, niters, still, diverged = trip_update_ref(h, b, s, plan)
+                if agree is not None:
+                    still = agree(still)
+                s = ICState(p=p, error=error, lam=lam_next, it=s.it + 1, niters=niters,
+                            active=still, diverged=diverged)
+        if verbose:
+            print(f"iter {s.it - 1}: |Dp|={s.error.tolist()} p={s.p.tolist()} "
+                  f"lambda={s.lam.tolist()}")
+        return s
+
+    def going(s: ICState) -> bool:
+        # The per-iteration host sync.
+        if plan.kernel and s.it > 0:
+            return still_count(plan, s.it - 1) > 0
+        return bool(s.active.any())
+
     if collect_trace:
         hist = []
-        for _ in range(max_iter):
+        for _ in range(plan.max_iter):
             state = body(state)
-            hist.append((state.error, state.p, state.lam))
+            # The fused update writes the same tensors every trip.
+            hist.append((state.error.clone(), state.p.clone(), state.lam.clone()))
         errs, ps, lams = zip(*hist)
         return state, (torch.stack(errs), torch.stack(ps), torch.stack(lams))
     with span("ica.trip.sync"):
-        going = bool(state.active.any())   # the per-iteration host sync
-    while going:
+        going_on = going(state)
+    while going_on:
         with span("ica.trip"):
             state = body(state)
             with span("ica.trip.sync"):
-                going = bool(state.active.any())
+                going_on = going(state)
     return state

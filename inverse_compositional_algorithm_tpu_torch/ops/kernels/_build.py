@@ -39,10 +39,12 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _I, _F, _P],
     "ica_fused_iter_ablate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "ica_trip_update": [_P] * 15 + [_I] * 9 + [_F] * 7 + [_P],
 }
 
 # Filled by the first load: library path, whether it was compiled in this
-# process, compile seconds and the compiler's resource report.
+# process, compile seconds and the compiler's resource report (kept beside
+# the library, so a reused library still has it).
 BUILD_INFO: dict = {}
 _LIB = None
 
@@ -77,7 +79,9 @@ def load_library() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     lib_path = _BUILD_DIR / f"libica_kernels_{_digest()}.so"
-    BUILD_INFO.update(path=str(lib_path), compiled=False, seconds=0.0, log="")
+    log_path = lib_path.with_suffix(".log")
+    BUILD_INFO.update(path=str(lib_path), compiled=False, seconds=0.0,
+                      log=log_path.read_text() if log_path.exists() else "")
     if not lib_path.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # Compile in a private directory and rename the library into place,
@@ -100,6 +104,8 @@ def load_library() -> ctypes.CDLL:
             if link.returncode != 0:
                 raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                    f"{link.stdout}\n{link.stderr}")
+            Path(f"{tmp}/lib.log").write_text(log)
+            os.replace(f"{tmp}/lib.log", log_path)
             os.replace(f"{tmp}/lib.so", lib_path)
         BUILD_INFO.update(compiled=True, seconds=time.perf_counter() - t0, log=log)
     lib = ctypes.CDLL(str(lib_path))
@@ -125,12 +131,14 @@ def use_kernel(*tensors) -> bool:
     raise ValueError(f"kernel operands must all be on CUDA or all on the CPU, got {kinds}")
 
 
-def check_operand(t, name: str, shape: tuple) -> None:
-    """Raise unless `t` is a contiguous float32 tensor of `shape`."""
+def check_operand(t, name: str, shape: tuple, dtype=None) -> None:
+    """Raise unless `t` is a contiguous tensor of `shape` and `dtype`
+    (default float32)."""
     import torch
 
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+    dtype = dtype or torch.float32
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():

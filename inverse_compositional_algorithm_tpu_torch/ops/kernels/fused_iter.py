@@ -8,6 +8,8 @@ tensors run csrc/fused_iter.cu, which forms the sampling coordinates itself
 and writes no per-pixel intermediate to device memory; CPU tensors take
 `fused_iter_moments_ref`, the op chain the kernel replaces (transform_grid,
 warp, masked residual, robust weights, channel-reduced moments).
+`bind_fused_iter` is the same kernel for the solver loop, with its checks
+and its output made once a level.
 
 `fused_iter_moments_ablate` launches K1's measurement-only ablation
 variants (csrc/fused_iter_ablate.cu), which eval/attr_bench.py times.
@@ -26,7 +28,7 @@ from . import _build
 from .normal_eq import moments_ref
 from .warp import warp_planar_ref
 
-__all__ = ["FusedIterPlan", "plan_fused_iter", "fused_iter_moments",
+__all__ = ["FusedIterPlan", "plan_fused_iter", "fused_iter_moments", "bind_fused_iter",
            "fused_iter_moments_ref", "fused_iter_moments_ablate", "ablate_variant",
            "ABLATE_KNOBS", "ABLATE_NOT_APPLICABLE", "LAUNCHES", "ABLATE_LAUNCHES"]
 
@@ -131,25 +133,35 @@ def _check_args(i2p, tplp, robust, height: int, width: int) -> None:
         raise ValueError(f"i2p is {h}x{w}, expected {height}x{width}")
 
 
-def _launch(entry: str, i2p, tplp, mat, projective, lam, height, width, robust,
-            nanifoutside, delta, y_offset, *extra) -> torch.Tensor:
-    """Check the operands of K1 (or of a variant) and launch C entry
-    `entry` with K1's arguments, then `extra`; returns [B, K, 8, 8]."""
+def _k1_operands(i2p, tplp, projective, height, width, robust, nanifoutside, delta,
+                 y_offset):
+    """Check K1's planes and make its outputs: (partial, out, the scalar
+    arguments of its C entry)."""
     b, c, h, w = i2p.shape
     npl, ho, wo = tplp.shape[1:]
     _build.check_operand(i2p, "i2p", (b, c, h, w))
     _build.check_operand(tplp, "tplp", (b, npl, ho, wo))
-    _build.check_operand(mat, "mat", (b, 3, 3))
     if max(c * h * w, npl * ho * wo) >= 2 ** 31:
         raise ValueError("a pair's planes are too large for the kernel's 32-bit offsets")
-    lam = torch.as_tensor(lam, dtype=torch.float32, device=i2p.device).expand(b).contiguous()
     nk = 2 if robust is None else 5
     nbands = -(-ho // K1_ROWS)
     partial = torch.empty((b, nk, nbands, 25), dtype=torch.float32, device=i2p.device)
     out = torch.empty((b, nk, 8, 8), dtype=torch.float32, device=i2p.device)
-    _build.launch(entry, i2p, tplp, mat, lam, partial, out, b, c, npl, h, w, ho, wo,
-                  int(projective), 0 if robust is None else robust.value, int(nanifoutside),
-                  int(delta), int(y_offset), 1.0 / float(max(height, width)), *extra)
+    scalars = (b, c, npl, h, w, ho, wo, int(projective), 0 if robust is None else robust.value,
+               int(nanifoutside), int(delta), int(y_offset), 1.0 / float(max(height, width)))
+    return partial, out, scalars
+
+
+def _launch(entry: str, i2p, tplp, mat, projective, lam, height, width, robust,
+            nanifoutside, delta, y_offset, *extra) -> torch.Tensor:
+    """Check the operands of K1 (or of a variant) and launch C entry
+    `entry` with K1's arguments, then `extra`; returns [B, K, 8, 8]."""
+    b = i2p.shape[0]
+    partial, out, scalars = _k1_operands(i2p, tplp, projective, height, width, robust,
+                                         nanifoutside, delta, y_offset)
+    _build.check_operand(mat, "mat", (b, 3, 3))
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=i2p.device).expand(b).contiguous()
+    _build.launch(entry, i2p, tplp, mat, lam, partial, out, *scalars, *extra)
     return out
 
 
@@ -187,6 +199,35 @@ def fused_iter_moments(i2p, tplp, mat, projective: bool, lam, height: int, width
                   robust, nanifoutside, delta, y_offset)
     LAUNCHES += 1
     return out
+
+
+def bind_fused_iter(plan: FusedIterPlan, projective: bool, height: int, width: int,
+                    robust: RobustLoss | None, nanifoutside: bool, delta: int,
+                    y_offset: int = 0):
+    """`fused_iter_moments` on a level's plan for the solver loop: the planes
+    checked and, on CUDA, the kernel's output and scratch allocated once.
+    Returns moments(mat, lam) -> [B, K, 8, 8] for [B, 3, 3] motion matrices
+    and a [B] lambda; on CUDA every call launches K1 into the same output
+    tensor, which the next call overwrites."""
+    i2p, tplp = plan.i2p, plan.tplp
+    _check_args(i2p, tplp, robust, height, width)
+    if not _build.use_kernel(i2p, tplp):
+        def moments_ref(mat, lam):
+            return fused_iter_moments(i2p, tplp, mat, projective, lam, height, width, robust,
+                                      nanifoutside, delta, y_offset)
+        return moments_ref
+    b = i2p.shape[0]
+    partial, out, scalars = _k1_operands(i2p, tplp, projective, height, width, robust,
+                                         nanifoutside, delta, y_offset)
+
+    def moments(mat, lam):
+        global LAUNCHES
+        _build.check_operand(mat, "mat", (b, 3, 3))
+        _build.check_operand(lam, "lam", (b,))
+        _build.launch("ica_fused_iter_moments", i2p, tplp, mat, lam, partial, out, *scalars)
+        LAUNCHES += 1
+        return out
+    return moments
 
 
 def ablate_variant(ablate: str) -> int:

@@ -46,6 +46,7 @@ from ..models.ic import (
     effective_delta,
     ic_solve,
     iterate,
+    start_loop,
     uses_kernels,
 )
 from ..ops.gradients import boundary_band_mask
@@ -180,9 +181,10 @@ def tiled_ic_solve(
     make = _fused_system if fused else _plain_system
     system = make(i1_loc, i2, ix, iy, *g, ttype, robust, nanifoutside, delta, scale,
                   hessian_chunk, y_offset=y0, reduce=reduce)
-    state = iterate(system, p0.to(dt), ttype, hh, ww, tol=tol, max_iter=max_iter,
-                    robust=robust, lam=lam, scale=scale, divergence_guard=divergence_guard,
-                    agree=agree)
+    plan, state = start_loop(system, p0.to(dt), ttype, hh, ww, tol=tol, max_iter=max_iter,
+                             robust=robust, lam=lam, scale=scale,
+                             divergence_guard=divergence_guard)
+    state = iterate(system, plan, state, agree=agree)
     return _max_trips_over_pairs(state, mesh)
 
 

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1 fused iteration, K3 warp, K4 moments, K5 warp
-floor) against their plain PyTorch versions (K1 and K3 also on the row
+floor, K6 trip update) against their plain PyTorch versions (K1 and K3 also on the row
 shards of the row-tiled solver), and its entry points (align, the
 benchmark, the eval harness, the row-tiled solver on two gloo ranks that
 share the card), on a CUDA device.
@@ -11,7 +11,10 @@ imports nothing of JAX, so it runs where only PyTorch is installed:
 
 Tolerances: moments normalized by max(|ref|, 1) at atol 2e-4, warps of
 0..255 images at atol 2e-3 (float32 sums taken in another order), NaN
-positions equal; reruns bitwise equal (no atomics on any result).
+positions equal; reruns bitwise equal (no atomics on any result). K6 on
+systems that assemble exactly (tests/trip_cases.py): flags, counts and
+iterations equal, p, error, lambda and the motion matrices within 1e-6 of
+max(|ref|, 1) (the norm and the 3x3 product sum in another order).
 """
 
 import numpy as np
@@ -22,8 +25,10 @@ import inverse_compositional_algorithm_tpu_torch as ica
 from inverse_compositional_algorithm_tpu_torch.ops import gradients, normal_equations
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import fused_iter as k1
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import normal_eq as k4
+from inverse_compositional_algorithm_tpu_torch.ops.kernels import trip_update as k6
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import warp as k3
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import warp_floor as k5
+from trip_cases import KINDS, MAX_ITER, SINGULAR_STEP, clone_state, trip_case
 
 torch.set_num_threads(1)
 
@@ -298,8 +303,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                                 (torch.float32, False)])
 def test_align_plain_configs_run_on_cuda(cuda, dtype, precondition):
     """float64 and precondition=False run on the card through the plain op
-    chain, as JAX runs its XLA chain for them: no K1 (and no K3 for
-    float64), and the CPU plain path's result, at 1e-9 on p in float64.
+    chain, as JAX runs its XLA chain for them: no K1 and no K6 (and no K3
+    for float64), and the CPU plain path's result, at 1e-9 on p in float64.
     float32 sums run in another order on the card, so the float32 case is
     held at 1e-2 px of corner displacement, as test_align_on_cuda_matches_cpu."""
     base = torch.tensor(np.random.default_rng(7).uniform(0, 255, (1, 97, 146, 3)), dtype=dtype)
@@ -308,11 +313,11 @@ def test_align_plain_configs_run_on_cuda(cuda, dtype, precondition):
     i1 = ica.ops.warp.bicubic_sample(base, *ica.transform_grid(p, T.HOMOGRAPHY, 97, 146))
     cfg = ica.AlignConfig(transform=T.HOMOGRAPHY, robust=R.CHARBONNIER, nscales=3,
                           precondition=precondition)
-    for m in (k1, k3, k4):
+    for m in (k1, k3, k4, k6):
         m.LAUNCHES = 0
     gpu = ica.align(i1.to(cuda), base.to(cuda), cfg, dtype=dtype)
     assert gpu.p.is_cuda and gpu.p.dtype == dtype and gpu.iw.is_cuda
-    assert (k1.LAUNCHES, k4.LAUNCHES) == (0, 0)
+    assert (k1.LAUNCHES, k4.LAUNCHES, k6.LAUNCHES) == (0, 0, 0)
     assert k3.LAUNCHES == (1 if dtype == torch.float32 else 0)
     cpu = ica.align(i1, base, cfg, dtype=dtype)
     assert torch.equal(gpu.niters.cpu(), cpu.niters)
@@ -562,3 +567,92 @@ def test_layers_on_cuda(cuda):
         assert p.is_cuda and iw.is_cuda and di.is_cuda
         assert k1.LAUNCHES > 0 and k3.LAUNCHES == 1 and (k4.LAUNCHES > 0) == quadratic
         assert float((p.cpu() - torch.tensor(p_gt)).abs().max()) <= 1e-3
+
+
+def _close(got, ref, what):
+    n = max(1.0, float(ref.abs().max()))
+    err = float((got - ref).abs().max()) / n
+    assert err <= 1e-6, f"{what}: {err}"
+
+
+@pytest.mark.parametrize("bsz", [1, 37, 1024])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("ttype", list(T), ids=[t.name for t in T])
+def test_trip_update(cuda, ttype, kind, bsz):
+    """K6 against trip_update_ref on the same moments and state: some pairs
+    already inactive, a singular H (dp = 0), a pair off the frame (reverts
+    to p0, diverged), a zero homogeneous scale (p kept), and the last
+    iteration (no pair goes on); the count in its slot, the other slot
+    zeroed; reruns bitwise equal."""
+    for it in (3, MAX_ITER - 1):
+        m, s, plan, (h, b) = trip_case(ttype, kind, bsz, seed=11 + bsz, it=it, device=cuda)
+        want = k6.trip_update_ref(h, b, s, plan)
+        runs = []
+        for _ in range(2):
+            got = clone_state(s)
+            plan.count[it % 2] = 0          # the slot this trip adds into
+            plan.count[1 - it % 2] = 7      # the last trip's count
+            before = k6.LAUNCHES
+            k6.trip_update(m, got, plan)
+            torch.cuda.synchronize()
+            assert k6.LAUNCHES == before + 1
+            runs.append((got, plan.mat.clone(), plan.count.clone()))
+        (got, mat, count), (again, mat2, count2) = runs
+        for name, w in zip(("p", "error", "lam", "niters", "active", "diverged"), want):
+            g = getattr(got, name)
+            assert torch.equal(g, getattr(again, name)), f"{name}: reruns differ"
+            if g.is_floating_point():
+                _close(g, w, name)
+            else:
+                assert torch.equal(g, w), name
+        assert torch.equal(mat, mat2) and torch.equal(count, count2)
+        _close(mat, ica.params_to_matrix(want[0], ttype), "mat")
+        cur = it % 2
+        assert int(count[cur]) == int(want[4].sum()) and int(count[1 - cur]) == 0
+        assert k6.still_count(plan, it) == int(want[4].sum())
+        if it == MAX_ITER - 1:
+            assert not bool(got.active.any())
+        if bsz >= 3:
+            assert float(got.error[0]) == 0.0
+            assert bool(got.diverged[1]) and torch.equal(got.p[1], plan.p0[1])
+            if kind == "quadratic" and ttype in SINGULAR_STEP:
+                assert torch.equal(got.p[2], s.p[2]) and float(got.error[2]) == 1.0
+
+
+def test_fused_ic_solve_takes_k6_every_trip(cuda):
+    """A kernel-path ic_solve launches K6 once for each K1 launch, every
+    trip holds at most 4 kernels (K1, its moment pass, K6), and the result
+    is the plain update's on the card within 1e-2 px of corner
+    displacement."""
+    base = ica.ops.pyramid.gaussian_blur(rand((1, 97, 146, 3), 7, "cpu"), 2.0)
+    p = torch.tensor([[0.01, -0.005, 1.5, 0.008, -0.01, -1.0, 5e-5, -3e-5]])
+    i1 = ica.ops.warp.bicubic_sample(base, *ica.transform_grid(p, T.HOMOGRAPHY, 97, 146))
+    i1, i2 = i1.expand(4, -1, -1, -1).to(cuda), base.expand(4, -1, -1, -1).to(cuda)
+    p0 = torch.zeros((4, 8), device=cuda)
+    for robust in (R.CHARBONNIER, R.QUADRATIC):
+        kw = dict(robust=robust, delta=5)
+        b1, b6 = k1.LAUNCHES, k6.LAUNCHES
+        st = ica.ic_solve(i1, i2, p0, T.HOMOGRAPHY, **kw)
+        torch.cuda.synchronize()
+        assert k1.LAUNCHES - b1 == k6.LAUNCHES - b6 == st.it > 0
+        plain = ica.ic_solve(i1.double(), i2.double(), p0.double(), T.HOMOGRAPHY, **kw)
+        xs, ys = [0.0, 145.0, 0.0, 145.0], [0.0, 0.0, 96.0, 96.0]
+        ax, ay = ica.ops.transforms.transform_points(st.p.double(), T.HOMOGRAPHY, xs, ys)
+        bx, by = ica.ops.transforms.transform_points(plain.p, T.HOMOGRAPHY, xs, ys)
+        assert float(torch.hypot(ax - bx, ay - by).max()) <= 1e-2
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        st = ica.ic_solve(i1, i2, p0, T.HOMOGRAPHY, robust=R.CHARBONNIER, delta=5)
+        torch.cuda.synchronize()
+    trips, launched, kernels = [], {}, []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CPU:
+            if ev.name() == "ica.trip":
+                trips.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+            elif not ev.is_user_annotation() and ev.name().startswith("cu"):
+                launched[ev.correlation_id()] = ev.start_ns()
+        elif not ev.is_user_annotation() and not ev.name().startswith(("Memcpy", "Memset")):
+            kernels.append(ev.correlation_id())
+    per_trip = [sum(1 for c in kernels if a <= launched.get(c, -1) < b) for a, b in trips]
+    print(f"{len(trips)} trips, kernels a trip {per_trip}")
+    assert len(trips) == st.it and max(per_trip) <= 4 and min(per_trip) >= 3

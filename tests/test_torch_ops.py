@@ -26,6 +26,7 @@ from inverse_compositional_algorithm_tpu_torch.ops import pyramid as tpy
 from inverse_compositional_algorithm_tpu_torch.ops import transforms as ttr
 from inverse_compositional_algorithm_tpu_torch.ops import warp as twa
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import normal_eq as tnq
+from inverse_compositional_algorithm_tpu_torch.ops.kernels import trip_update as tk6
 
 torch.set_num_threads(1)
 
@@ -228,7 +229,7 @@ def test_effective_delta_and_lost_overlap():
     p[1, 2] = 500.0                                 # shifted far out of the frame
     p[2, 5] = -400.0                                # shifted far above the frame
     p[3, 0] = np.nan
-    got = tic._lost_overlap(torch.tensor(p), T.HOMOGRAPHY, 40, 60)
+    got = tk6.lost_overlap(torch.tensor(p), T.HOMOGRAPHY, 40, 60)
     want = jic._lost_overlap(jnp.asarray(p), jtr.TransformType.HOMOGRAPHY, 40, 60)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.tolist() == [False, True, True, True]
