@@ -7,10 +7,13 @@ Needs one CUDA device and nvcc. It builds the kernels from the sources in
 this checkout (failing on a register spill in the compiler's report),
 holds each kernel (K1 fused iteration, K3 warp, K4 moments, K5 warp
 floor, K1a, K1's ablation variants, and K6, the solver trip's update at
-batch 1024, robust HOMOGRAPHY and quadratic EUCLIDEAN) against its plain
-PyTorch version at the flagship's shapes, and K1 and K3 also on a 69-degree rotation and
-a diverged homography (NaN positions equal, reruns bitwise equal; K1 too
-on ragged and coarse frames and at batch 1 and 16; K5 on both of its
+batch 1024, robust HOMOGRAPHY and quadratic EUCLIDEAN, and at batch 1,
+four-band AFFINITY LORENTZIAN) against its plain
+PyTorch version at the flagship's shapes, and K1 and K3 also on a 69-degree rotation,
+a diverged homography and one whole four-band 10980x10980 Sentinel-2 tile
+pair (NaN positions equal, reruns bitwise equal; K1 too
+on ragged and coarse frames, at batch 1 and 16 and at 1, 2 and 4
+channels; K5 on both of its
 load paths, TMA and plain, at ragged, gray, minimal and 4K frames), then
 drives the port's entry points, each with the kernels' launch counts set
 to 0 just before it and read just after:
@@ -168,6 +171,8 @@ def main() -> int:
             p[:, 6:8] = rng.uniform(-2.0 / (l * l), 2.0 / (l * l), (b, 2))
         elif ttype is T.EUCLIDEAN:
             p[:, 2] = rng.uniform(-lin, lin, b)
+        elif ttype is T.AFFINITY:
+            p[:, 2:6] = rng.uniform(-lin, lin, (b, 4))
         return torch.tensor(p, device=dev)
 
     kernels = {}
@@ -255,12 +260,18 @@ def main() -> int:
           B * H * W * benchmarks.moments_flops_per_pixel(3))
 
     # ---- phase 5: K1 fused iteration ----
-    def k1_inputs(b, h, w, ttype, p):
-        """Plan of blurred random images, and the motion matrices of `p`
-        (one motion for every pair) or, when None, of motion()."""
+    def k1_inputs(b, h, w, ttype, p, c=C, gen=None):
+        """Plan of blurred random c-channel images, and the motion matrices
+        of `p` (one motion for every pair) or, when None, of motion(). With
+        `gen`, a torch generator on the card, the images are drawn there."""
+        def images():
+            if gen is None:
+                return rand_images(b, h, w, c)
+            return torch.rand((b, h, w, c), generator=gen, device=dev) * 255.0
+
         delta = min(10, (min(h, w) - 1) // 4)
-        i1 = pyramid.gaussian_blur(rand_images(b, h, w), 2.0)
-        i2 = pyramid.gaussian_blur(rand_images(b, h, w), 2.0)
+        i1 = pyramid.gaussian_blur(images(), 2.0)
+        i2 = pyramid.gaussian_blur(images(), 2.0)
         ix, iy = gradients.central_gradients(i1)
         band = gradients.boundary_band_mask(h, w, delta, device=dev)[None, :, :, None]
         ix, iy = ix * band, iy * band
@@ -269,11 +280,12 @@ def main() -> int:
              else ica.pad_params(torch.tensor([p], device=dev)).expand(b, 8))
         return plan, ica.params_to_matrix(p, ttype).contiguous(), delta
 
-    def check_k1(args, what, phase=5):
-        """K1 against its plain version: reruns bitwise equal, NaN positions
-        equal, the finite moments within KERNEL_TOL normalized."""
+    def check_k1(args, what, phase=5, ref=None):
+        """K1 against its plain version (`ref`, when given, is its value):
+        reruns bitwise equal, NaN positions equal, the finite moments within
+        KERNEL_TOL normalized."""
         got = k1.fused_iter_moments(*args)
-        ref = k1.fused_iter_moments_ref(*args)
+        ref = k1.fused_iter_moments_ref(*args) if ref is None else ref
         again = k1.fused_iter_moments(*args)
         torch.cuda.synchronize()
         require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
@@ -323,6 +335,40 @@ def main() -> int:
                       nbytes(plan.i2p, plan.tplp, mat, lam) + B * 5 * 64 * 4,  # out: [B, 5, 8, 8]
                       B * h * w * benchmarks.fused_iter_flops_per_pixel(C))
 
+    # K1's other instances: <1> for gray, <0> for any C but 1 and 3 (a
+    # four-band tile's); robust and quadratic, both nanifoutside forms.
+    affine = [1.0, -1.0, 0.05, -0.02, 0.08, -0.04]
+    both4 = [(R.LORENTZIAN, True), (R.LORENTZIAN, False), (None, True), (None, False)]
+    for c, b, h, w, losses in [(1, 2, 49, 73, both4), (2, 2, 49, 73, both4),
+                               (4, 2, 49, 73, both4), (4, 1, 1080, 1920, both4[:1])]:
+        plan, mat, delta = k1_inputs(b, h, w, T.AFFINITY, affine, c=c)
+        lam = torch.linspace(5.0, 80.0, b, device=dev)
+        for robust, nan in losses:
+            args = (plan.i2p, plan.tplp, mat, False, lam, h, w, robust, nan, delta)
+            check_k1(args, f"{c}-channel {b}x{h}x{w} AFFINITY "
+                           f"{robust.name if robust else 'QUADRATIC'} nanifoutside={nan}")
+
+    # K1's <0> instance and K3 on one whole Sentinel-2 tile pair (10980 x
+    # 10980, four bands, the sentinel2_affine_lorentzian configuration's
+    # LORENTZIAN with nanifoutside): its 15 packed planes reach 84% of K1's
+    # 32-bit offsets. The plain K1 is summed over bands of rows (its
+    # y_offset), as phase 12's row shards are, so that it fits the card.
+    th = tw = 10980
+    tile_p = [2.3, -1.7, 1.6 / tw, -0.9 / tw, 1.2 / tw, -1.8 / tw]
+    plan, mat, delta = k1_inputs(1, th, tw, T.AFFINITY, tile_p, c=4,
+                                 gen=torch.Generator(device=dev).manual_seed(14))
+    args = (plan.i2p, plan.tplp, mat, False, torch.tensor([5.0], device=dev), th, tw,
+            R.LORENTZIAN, True, delta)
+    rows = -(-th // 8)
+    ref = sum(k1.fused_iter_moments_ref(*args[:1], plan.tplp[:, :, r:r + rows], *args[2:],
+                                        y_offset=r) for r in range(0, th, rows))
+    check_k1(args, f"tile 1x4x{th}x{tw} AFFINITY LORENTZIAN nanifoutside=True", ref=ref)
+    check_warp(plan.i2p, *ica.transform_grid(ica.pad_params(torch.tensor([tile_p], device=dev)),
+                                             T.AFFINITY, th, tw),
+               f"tile 1x4x{th}x{tw} AFFINITY", phase=5)
+    del plan, mat, args, ref
+    torch.cuda.empty_cache()
+
     def corner_err(pa, pb, ttype, h=H, w=W):
         xs, ys = ([0.0, w - 1.0, 0.0, w - 1.0], [0.0, 0.0, h - 1.0, h - 1.0])
         ax, ay = transform_points(pa.double(), ttype, xs, ys)
@@ -330,21 +376,24 @@ def main() -> int:
         return float(torch.hypot(ax - bx, ay - by).max())
 
     # ---- phase 5b: K6 trip update ----
-    # One trip of a solve near its answer, at batch 1024 on the flagship's
-    # 97x146 level: K1's moments of synthetic pairs, a state 0.05 px off the
-    # ground truth with a fifth of the pairs already done. The robust
-    # homography anneals lambda and assembles H from the moments; the
-    # quadratic Euclidean takes K4's hoisted Hessian. p and the motion
-    # matrices are held by their corners' displacement, which weighs each
-    # parameter by how far it moves the frame.
-    kb, kh, kw = 1024, 97, 146
-    kbase = pyramid.gaussian_blur(rand_images(1, kh, kw), 2.0).expand(kb, kh, kw, C)
+    # One trip of a solve near its answer, on the flagship's 97x146 level:
+    # K1's moments of synthetic pairs, a state 0.05 px off the ground truth
+    # with a fifth of the pairs already done (at batch 1 the pair goes on).
+    # The robust homography (batch 1024) and the four-band affine Lorentzian
+    # (batch 1, a Sentinel-2 tile's trip) anneal lambda and assemble H from
+    # the moments; the quadratic Euclidean (batch 1024) takes K4's hoisted
+    # Hessian. p and the motion matrices are held by their corners'
+    # displacement, which weighs each parameter by how far it moves the
+    # frame.
+    kh, kw = 97, 146
+    kbases = {C: pyramid.gaussian_blur(rand_images(1, kh, kw), 2.0)}
     kdelta = min(10, (min(kh, kw) - 1) // 4)
     band = gradients.boundary_band_mask(kh, kw, kdelta, device=dev)[None, :, :, None]
     # Each live parameter's change that moves a corner by about 1 px.
     k6_px = {T.HOMOGRAPHY: [1.0 / kw, 1.0 / kw, 1.0, 1.0 / kw, 1.0 / kw, 1.0,
                             1.0 / kw ** 2, 1.0 / kw ** 2],
-             T.EUCLIDEAN: [1.0, 1.0, 1.0 / kw]}
+             T.EUCLIDEAN: [1.0, 1.0, 1.0 / kw],
+             T.AFFINITY: [1.0, 1.0, 1.0 / kw, 1.0 / kw, 1.0 / kw, 1.0 / kw]}
 
     def mat_corner_err(ma, mb):
         """Max px between the frame's corners mapped by [B, 3, 3] matrices."""
@@ -353,8 +402,13 @@ def main() -> int:
         qa, qb = xy @ ma.double().transpose(1, 2), xy @ mb.double().transpose(1, 2)
         return float((qa[..., :2] / qa[..., 2:] - qb[..., :2] / qb[..., 2:]).norm(dim=-1).max())
 
-    for ttype, robust in ((T.HOMOGRAPHY, R.CHARBONNIER), (T.EUCLIDEAN, None)):
+    for ttype, robust, kb, kc in ((T.HOMOGRAPHY, R.CHARBONNIER, 1024, C),
+                                  (T.EUCLIDEAN, None, 1024, C),
+                                  (T.AFFINITY, R.LORENTZIAN, 1, 4)):
         what = f"{ttype.name} {robust.name if robust else 'QUADRATIC'}"
+        if kc not in kbases:
+            kbases[kc] = pyramid.gaussian_blur(rand_images(1, kh, kw, kc), 2.0)
+        kbase = kbases[kc].expand(kb, kh, kw, kc)
         p_gt = motion(ttype, kb, kh, kw)
         ki1 = warp.bicubic_sample(kbase, *ica.transform_grid(p_gt, ttype, kh, kw))
         kix, kiy = gradients.central_gradients(ki1)
@@ -373,7 +427,7 @@ def main() -> int:
         kstate = ica.ICState(
             p=kp, error=torch.full((kb,), 1e10, device=dev), lam=klam, it=3,
             niters=torch.full((kb,), 3, dtype=torch.int32, device=dev),
-            active=torch.tensor(rng.uniform(size=kb) > 0.2, device=dev),
+            active=torch.tensor((rng.uniform(size=kb) > 0.2) | (kb == 1), device=dev),
             diverged=torch.zeros(kb, dtype=torch.bool, device=dev))
         ktrip = k6.plan_trip(p_gt.clone(), ttype, kh, kw, tol=1e-3, max_iter=30,
                              anneal=robust is not None,
@@ -417,10 +471,10 @@ def main() -> int:
                   "mat": mat_corner_err(ktrip.mat, want_mat)}
         require(max(corner.values()) <= TRIP_CORNER_TOL,
                 f"K6 {what}: corner err {corner} px > {TRIP_CORNER_TOL}")
-        log(f"phase 5b K6 {kb}x{kh}x{kw} {what}: normalized err {k6_err}, corner err "
+        log(f"phase 5b K6 {kb}x{kc}x{kh}x{kw} {what}: normalized err {k6_err}, corner err "
             f"p {corner['p']:.3g} px, mat {corner['mat']:.3g} px (the step moved corners "
             f"{moved:.3g} px), going on {int(want[4].sum())} of {kb}")
-        if robust is None:
+        if ttype is not T.HOMOGRAPHY:
             continue
         kernels["trip_update"] = dict(
             route="cuda",

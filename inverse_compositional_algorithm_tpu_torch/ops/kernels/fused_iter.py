@@ -133,6 +133,14 @@ def _check_args(i2p, tplp, robust, height: int, width: int) -> None:
         raise ValueError(f"i2p is {h}x{w}, expected {height}x{width}")
 
 
+def _check_offsets(c: int, npl: int, h: int, w: int, ho: int, wo: int) -> None:
+    """Raise unless a pair's planes fit K1's 32-bit offsets: the C planes of
+    the H x W frame and the P packed planes of the Ho x Wo grid. A 10980 x
+    10980 pair fits at C = 4 (P = 15, 84% of 2^31) and not at C = 5."""
+    if max(c * h * w, npl * ho * wo) >= 2 ** 31:
+        raise ValueError("a pair's planes are too large for the kernel's 32-bit offsets")
+
+
 def _k1_operands(i2p, tplp, projective, height, width, robust, nanifoutside, delta,
                  y_offset):
     """Check K1's planes and make its outputs: (partial, out, the scalar
@@ -141,8 +149,7 @@ def _k1_operands(i2p, tplp, projective, height, width, robust, nanifoutside, del
     npl, ho, wo = tplp.shape[1:]
     _build.check_operand(i2p, "i2p", (b, c, h, w))
     _build.check_operand(tplp, "tplp", (b, npl, ho, wo))
-    if max(c * h * w, npl * ho * wo) >= 2 ** 31:
-        raise ValueError("a pair's planes are too large for the kernel's 32-bit offsets")
+    _check_offsets(c, npl, h, w, ho, wo)
     nk = 2 if robust is None else 5
     nbands = -(-ho // K1_ROWS)
     partial = torch.empty((b, nk, nbands, 25), dtype=torch.float32, device=i2p.device)

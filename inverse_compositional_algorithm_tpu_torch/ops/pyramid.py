@@ -11,7 +11,7 @@ smoothing conventions:
 
 Level sizes round half up (IPOL C++ `zoom_size`). Blur and resample are
 linear and separable, so a level is two products with constant per-axis
-matrices built in float64 (`_zoom_matrices`).
+matrices built in float64 (`_zoom_axis`).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import ZOOM_SIGMA_ZERO
+from ..utils.profiling import span
 
 __all__ = ["zoom_size", "pyramid_shapes", "gaussian_blur", "zoom_out", "build_pyramid"]
 
@@ -122,20 +123,22 @@ def _blur_matrix(n: int, sigma: float) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def _zoom_matrices(h: int, w: int, nu: float, method: str):
-    """Per-axis fused blur+resample operators (M_y [H, nyy], M_x [W, nxx]),
-    float64: out = M_y^T I M_x with M = G(sigma) @ S."""
-    nxx, nyy = zoom_size(w, h, nu)
-    sigma = _aa_sigma(nu, method)
-    ox = np.arange(nxx, dtype=np.float64)
-    oy = np.arange(nyy, dtype=np.float64)
-    if method == "ipol":
-        sx, sy = ox / nu, oy / nu
-    else:
-        sx, sy = (ox + 0.5) / nu - 0.5, (oy + 0.5) / nu - 0.5
-    m_x = _blur_matrix(w, sigma) @ _resample_matrix(w, sx).astype(np.float64)
-    m_y = _blur_matrix(h, sigma) @ _resample_matrix(h, sy).astype(np.float64)
-    return m_y, m_x
+def _zoom_axis(n: int, nu: float, method: str) -> np.ndarray:
+    """One axis's fused blur+resample operator M = G(sigma) @ S, [n, n'],
+    float64: a level is M_y^T I M_x. Cached per axis length, so a square
+    frame builds one (the product is dense: 1.3 TFLOP on the host for
+    n = 10980)."""
+    o = np.arange(zoom_size(n, n, nu)[0], dtype=np.float64)
+    s = o / nu if method == "ipol" else (o + 0.5) / nu - 0.5
+    return _blur_matrix(n, _aa_sigma(nu, method)) @ _resample_matrix(n, s).astype(np.float64)
+
+
+@lru_cache(maxsize=64)
+def _zoom_axis_on(n: int, nu: float, method: str, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """`_zoom_axis` in `dtype` on `device`, made once: a 10980-px axis's
+    operator is 0.5 GB of float64 to convert and copy over, twice a call."""
+    return torch.as_tensor(_zoom_axis(n, nu, method), dtype=dtype, device=device)
 
 
 def zoom_out(image: torch.Tensor, nu: float, method: str = "ipol") -> torch.Tensor:
@@ -143,9 +146,8 @@ def zoom_out(image: torch.Tensor, nu: float, method: str = "ipol") -> torch.Tens
     two products with the per-axis operators (TF32 is off for them, see the
     package's __init__)."""
     b, h, w, c = image.shape
-    m_y, m_x = _zoom_matrices(h, w, nu, method)
-    m_y = torch.as_tensor(m_y, dtype=image.dtype, device=image.device)
-    m_x = torch.as_tensor(m_x, dtype=image.dtype, device=image.device)
+    m_y = _zoom_axis_on(h, nu, method, image.dtype, image.device)
+    m_x = _zoom_axis_on(w, nu, method, image.dtype, image.device)
     tmp = torch.einsum("bhwc,hy->bywc", image, m_y)
     return torch.einsum("bywc,wx->byxc", tmp, m_x)
 
@@ -154,8 +156,10 @@ def build_pyramid(image: torch.Tensor, nscales: int, nu: float,
                   method: str = "ipol") -> list[torch.Tensor]:
     """[B, h_s, w_s, C] per level, level 0 = input resolution; each level is
     downsampled from the previous one (reference
-    src/inverse_compositional_algorithm.py:331-338)."""
+    src/inverse_compositional_algorithm.py:331-338). Each level's
+    `zoom_out` runs in an `ica.pyramid.zoom` span, finest first."""
     levels = [image]
     for _ in range(1, nscales):
-        levels.append(zoom_out(levels[-1], nu, method))
+        with span("ica.pyramid.zoom"):
+            levels.append(zoom_out(levels[-1], nu, method))
     return levels

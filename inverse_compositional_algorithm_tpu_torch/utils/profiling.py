@@ -1,8 +1,8 @@
 """Profiling and tracing utilities.
 
 `span(name)`, the program's own ranges at its layer boundaries (the
-`ica.*` names: the call, the pyramid, each level and its set-up, each
-solver trip and its stages, the final warp); a thin wrapper over
+`ica.*` names: the call, the pyramid and each of its zooms, each level and
+its set-up, each solver trip and its stages, the final warp); a thin wrapper over
 `torch.profiler` that writes a Chrome trace of a call with those spans
 (viewable in Perfetto or chrome://tracing); and `device_ms`, the kernels'
 device-only time of a call from the same profiler, with a warm or a cold

@@ -73,6 +73,7 @@ def motion(ttype, p, b, dev):
 MOTIONS = {
     "homography": (T.HOMOGRAPHY, [0.02, -0.01, 2.0, 0.015, -0.02, -1.5, 1e-4, -5e-5]),
     "euclidean": (T.EUCLIDEAN, [1.5, -0.5, 0.05]),
+    "affine": (T.AFFINITY, [1.0, -1.0, 0.05, -0.02, 0.08, -0.04]),
     "rotation69": (T.EUCLIDEAN, [0.0, 0.0, 1.2]),
     "diverged": (T.HOMOGRAPHY, [-1.2, -2.5, 33.0, 0.04, -3.3, 26.0, 1.5e-3, -0.1]),
 }
@@ -115,9 +116,9 @@ def test_weighted_moments(cuda, k, h, w):
     assert torch.equal(got, k4.weighted_moments(maps))       # no atomics: bit-identical
 
 
-def k1_plan(b, h, w, delta, dev):
-    i1 = rand((b, h, w, 3), 2, dev)
-    i2 = rand((b, h, w, 3), 3, dev)
+def k1_plan(b, h, w, delta, dev, c=3):
+    i1 = rand((b, h, w, c), 2, dev)
+    i2 = rand((b, h, w, c), 3, dev)
     ix, iy = gradients.central_gradients(i1)
     band = gradients.boundary_band_mask(h, w, delta, device=dev)[None, :, :, None]
     ix, iy = ix * band, iy * band
@@ -156,6 +157,26 @@ def test_fused_iter_motions_and_shapes(cuda, name, b, h, w):
     assert torch.equal(torch.isfinite(got), fin)
     assert bool(fin.all()) == (name != "diverged")
     normalized_close(got[fin], ref[fin])
+    assert bitwise_equal(got, k1.fused_iter_moments(*args))
+
+
+@pytest.mark.parametrize("robust,nan", [(R.LORENTZIAN, True), (R.LORENTZIAN, False),
+                                        (None, True), (None, False)],
+                         ids=["lorentzian", "lorentzian_nan_false", "quadratic",
+                              "quadratic_nan_false"])
+@pytest.mark.parametrize("c", [1, 2, 4])
+def test_fused_iter_channels(cuda, c, robust, nan):
+    """K1's one-channel instance (C = 1) and its generic one (every other C
+    but 3: `fused_iter_kernel<0>`, which a four-band tile takes) against
+    the plain version at a ragged shape, robust and quadratic, both
+    nanifoutside forms; reruns bitwise equal."""
+    b, h, w, delta = 2, 49, 73, 4
+    plan = k1_plan(b, h, w, delta, cuda, c=c)
+    lam = torch.tensor([5.0, 17.0], device=cuda)
+    args = (plan.i2p, plan.tplp, *motion(*MOTIONS["affine"], b, cuda), lam, h, w, robust, nan,
+            delta)
+    got = k1.fused_iter_moments(*args)
+    normalized_close(got, k1.fused_iter_moments_ref(*args))
     assert bitwise_equal(got, k1.fused_iter_moments(*args))
 
 
@@ -352,6 +373,28 @@ def test_align_on_cuda_matches_cpu(cuda):
         bx, by = ica.ops.transforms.transform_points(cpu.p.double(), cfg.transform, xs, ys)
         assert float(torch.hypot(ax - bx, ay - by).max()) <= 1e-2
         assert torch.equal(gpu.diverged.cpu(), cpu.diverged)
+
+
+@pytest.mark.parametrize("c", [1, 4])
+def test_align_channels_on_cuda_matches_cpu(cuda, c):
+    """A gray align() and a four-band one (K1's `<1>` and `<0>` instances),
+    AFFINITY with the annealed LORENTZIAN loss, on CUDA within 1e-2 px of
+    corner displacement of the CPU plain path, divergence flags equal."""
+    base = torch.tensor(np.random.default_rng(11).uniform(0, 255, (1, 97, 146, c)),
+                        dtype=torch.float32)
+    base = ica.ops.pyramid.gaussian_blur(base, 2.0)
+    p = torch.tensor([[1.5, -1.0, 0.01, -0.006, 0.008, -0.01, 0.0, 0.0]])
+    i1 = ica.ops.warp.bicubic_sample(base, *ica.transform_grid(p, T.AFFINITY, 97, 146))
+    cfg = ica.AlignConfig(transform=T.AFFINITY, robust=R.LORENTZIAN, nscales=3)
+    k1.LAUNCHES = k3.LAUNCHES = 0
+    gpu = ica.align(i1.to(cuda), base.to(cuda), cfg)
+    assert k1.LAUNCHES > 0 and k3.LAUNCHES == 1
+    cpu = ica.align(i1, base, cfg)
+    xs, ys = [0.0, 145.0, 0.0, 145.0], [0.0, 0.0, 96.0, 96.0]
+    ax, ay = ica.ops.transforms.transform_points(gpu.p.cpu().double(), cfg.transform, xs, ys)
+    bx, by = ica.ops.transforms.transform_points(cpu.p.double(), cfg.transform, xs, ys)
+    assert float(torch.hypot(ax - bx, ay - by).max()) <= 1e-2
+    assert torch.equal(gpu.diverged.cpu(), cpu.diverged)
 
 
 def test_spans_share_the_device_clock(cuda):

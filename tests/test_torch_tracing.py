@@ -22,7 +22,8 @@ CFG = ica.AlignConfig(transform=T.HOMOGRAPHY, robust=ica.RobustLoss.CHARBONNIER,
                       delta=4)
 
 # The span each span sits in directly; the loop's first check sits in the level.
-PARENT = {"ica.pyramid": {"ica.align"}, "ica.level": {"ica.align"},
+PARENT = {"ica.pyramid": {"ica.align"}, "ica.pyramid.zoom": {"ica.pyramid"},
+          "ica.level": {"ica.align"},
           "ica.level.setup": {"ica.level"}, "ica.trip": {"ica.level"},
           "ica.trip.system": {"ica.trip"}, "ica.trip.update": {"ica.trip"},
           "ica.trip.sync": {"ica.trip", "ica.level"}, "ica.final_warp": {"ica.align"},
@@ -111,6 +112,7 @@ def test_align_spans_nest_as_the_layers(traced):
     assert names.count("ica.align") == 1 and names.count("ica.pyramid") == 1
     assert names.count("ica.level") == CFG.nscales == names.count("ica.level.setup")
     assert names.count("ica.final_warp") == 1
+    assert names.count("ica.pyramid.zoom") == 2 * (CFG.nscales - 1)
     for (name, _, _), parent in zip(rows, parents(rows)):
         assert (parent[0] if parent else None) in PARENT[name], name
     n = names.count("ica.trip")
