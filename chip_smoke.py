@@ -6,9 +6,11 @@
 Needs one CUDA device and nvcc. It builds the kernels from the sources in
 this checkout (failing on a register spill in the compiler's report),
 holds each kernel (K1 fused iteration, K3 warp, K4 moments, K5 warp
-floor, K1a, K1's ablation variants, and K6, the solver trip's update at
+floor, K1a, K1's ablation variants, K6, the solver trip's update at
 batch 1024, robust HOMOGRAPHY and quadratic EUCLIDEAN, and at batch 1,
-four-band AFFINITY LORENTZIAN) against its plain
+four-band AFFINITY LORENTZIAN, and K7, the level set-up, robust at the finest
+level of 1024 584x388 pairs and on one whole four-band tile pair, quadratic
+at the finest level of 64 1080p pairs) against its plain
 PyTorch version at the flagship's shapes, and K1 and K3 also on a 69-degree rotation,
 a diverged homography and one whole four-band 10980x10980 Sentinel-2 tile
 pair (NaN positions equal, reruns bitwise equal; K1 too
@@ -103,8 +105,8 @@ def main() -> int:
     )
     from inverse_compositional_algorithm_tpu_torch.models import layers
     from inverse_compositional_algorithm_tpu_torch.ops.kernels import (
-        _build, fused_iter as k1, normal_eq as k4, trip_update as k6, warp as k3,
-        warp_floor as k5,
+        _build, fused_iter as k1, level_pack as k7, normal_eq as k4, trip_update as k6,
+        warp as k3, warp_floor as k5,
     )
     from inverse_compositional_algorithm_tpu_torch.ops.normal_equations import grad_moments
     from inverse_compositional_algorithm_tpu_torch.ops.transforms import (
@@ -134,7 +136,7 @@ def main() -> int:
         func = named.group(1) if named else func
         if "entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", file=sys.stderr)
-            if "trip_update" in func and not named:
+            if ("trip_update" in func or "level_pack" in func) and not named:
                 log(f"phase 2 ptxas {func}: {line.strip()}")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         require(spill is None or spill.groups() == ("0", "0"),
@@ -369,6 +371,80 @@ def main() -> int:
     del plan, mat, args, ref
     torch.cuda.empty_cache()
 
+    # ---- phase 5c: K7 level set-up ----
+    # K7 against the set-up's op chain (pack_level_ref): the packed images
+    # and gradients bitwise, each gradient moment within 2(C - 1) units of
+    # 2^-24 of its products' magnitude sum (ATen sums the channels in its
+    # own order), reruns bitwise; robust at the finest level of
+    # homography_charbonnier.bulk_b1024_584x388 (timed) and on one whole
+    # four-band Sentinel-2 tile pair (15 planes, 84% of the 32-bit offsets),
+    # quadratic (the moments in their own planes, for K4) at the finest level
+    # of euclidean_quadratic.clip_b64_1080p.
+    def bitwise(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def check_pack(i1, i2, delta, robust, what):
+        c = i1.shape[-1]
+        got = k7.pack_level(i1, i2, delta, True, robust)
+        again = k7.pack_level(i1, i2, delta, True, robust)
+        torch.cuda.synchronize()
+        require(bitwise(got.tplp, again.tplp) and bitwise(got.i2p, again.i2p)
+                and (robust or bitwise(got.gmom, again.gmom)), f"K7 {what}: reruns differ")
+        del again
+        ref = k7.pack_level_ref(i1, i2, delta, True, robust)
+        torch.cuda.synchronize()
+        require(bitwise(got.i2p, ref.i2p) and bitwise(got.tplp[:, :3 * c], ref.tplp[:, :3 * c]),
+                f"K7 {what}: the packed images or gradients differ from the chain's")
+        require((got.gmom is None) == robust and (robust or got.gmom.shape == ref.gmom.shape),
+                f"K7 {what}: the moments are not where the loss wants them")
+        units, err = k7.moment_gap(got, ref)
+        require(units <= 2 * (c - 1), f"K7 {what}: a gradient moment beyond its bound")
+        log(f"phase 5c K7 {what}: images and gradients bitwise the chain's, moments within "
+            f"{units:.3g} units of 2^-24 of their magnitude sum (max abs err {err:.3g})")
+        return err
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    kb7 = 1024
+    pi1, pi2 = (torch.rand((kb7, H, W, C), generator=gen, device=dev) * 255.0 for _ in range(2))
+    err7 = check_pack(pi1, pi2, 10, True, f"bulk finest {kb7}x{H}x{W}x{C} robust")
+    torch.cuda.empty_cache()
+    packed = k7.pack_level(pi1, pi2, 10, True, True)
+
+    def pack():          # drops its plan: the timers keep what a call returns
+        k7.pack_level(pi1, pi2, 10, True, True)
+
+    kernels["level_pack"] = dict(
+        route="cuda",
+        source="inverse_compositional_algorithm_tpu_torch/ops/kernels/csrc/level_pack.cu",
+        replaces="none: a level's set-up chain (central_gradients, band, grad_moments, "
+                 "plan_fused_iter; ~20 ATen passes), which XLA fuses in the JAX package",
+        max_abs_err=err7,
+        ms=cuda_ms(pack, 20),
+        device_ms=dev_ms(pack, 20, "K7"),
+        cold_device_ms=dev_ms(pack, 20, "K7", cold=True),
+        plain_ms=cuda_ms(lambda: k7.pack_level_ref(pi1, pi2, 10, True, True), 5),
+        library_ms=None)          # no PyTorch call computes this chain
+    # Reads i1 and i2 once, writes the 3C + 3 packed planes and i2's C planes
+    # once; about 12 flops a pixel and channel.
+    bound(kernels["level_pack"], nbytes(pi1, pi2, packed.tplp, packed.i2p),
+          kb7 * H * W * C * 12)
+    log(f"phase 5c K7 bulk finest: {kernels['level_pack']['device_ms']:.3f} ms device, bound "
+        f"{kernels['level_pack']['bound_ms']:.3f} ms, chain {kernels['level_pack']['plain_ms']:.3f}"
+        f" ms ({card})")
+    del pi1, pi2, packed
+    torch.cuda.empty_cache()
+    ti1, ti2 = (torch.rand((1, th, tw, 4), generator=gen, device=dev) * 255.0 for _ in range(2))
+    check_pack(ti1, ti2, 10, True, f"tile 1x{th}x{tw}x4 robust")
+    log(f"phase 5c K7 tile: {cuda_ms(lambda: k7.pack_level(ti1, ti2, 10, True, True), 5):.3f} ms, "
+        f"chain {cuda_ms(lambda: k7.pack_level_ref(ti1, ti2, 10, True, True), 2):.3f} ms")
+    del ti1, ti2
+    torch.cuda.empty_cache()
+    qi1, qi2 = (torch.rand((64, 1080, 1920, C), generator=gen, device=dev) * 255.0
+                for _ in range(2))
+    check_pack(qi1, qi2, 10, False, f"clip finest 64x1080x1920x{C} quadratic")
+    del qi1, qi2
+    torch.cuda.empty_cache()
+
     def corner_err(pa, pb, ttype, h=H, w=W):
         xs, ys = ([0.0, w - 1.0, 0.0, w - 1.0], [0.0, 0.0, h - 1.0, h - 1.0])
         ax, ay = transform_points(pa.double(), ttype, xs, ys)
@@ -508,7 +584,8 @@ def main() -> int:
     # Each kernel's launch count: the wrapper's module and its counter.
     counters = {"fused_iter_moments": (k1, "LAUNCHES"), "warp_planar": (k3, "LAUNCHES"),
                 "weighted_moments": (k4, "LAUNCHES"), "warp_floor": (k5, "LAUNCHES"),
-                "fused_iter_ablate": (k1, "ABLATE_LAUNCHES"), "trip_update": (k6, "LAUNCHES")}
+                "fused_iter_ablate": (k1, "ABLATE_LAUNCHES"), "trip_update": (k6, "LAUNCHES"),
+                "level_pack": (k7, "LAUNCHES")}
     launches = {k: 0 for k in counters}
 
     def window(fn):
@@ -547,6 +624,8 @@ def main() -> int:
     for name, c in (("flagship", fl), ("default", de)):
         require(c["trip_update"] == c["fused_iter_moments"],
                 f"{name} align: a trip did not take K6: {c}")
+        require(c["level_pack"] == runs[name]["cfg"].nscales,
+                f"{name} align: K7 did not pack each level once: {c}")
 
     for name, run in runs.items():
         cpu = ica.align(run["i1"][:2].cpu(), run["i2"][:2].cpu(), run["cfg"])
@@ -880,7 +959,7 @@ def main() -> int:
         kernels[k]["launches"] = launches[k]
         require(launches[k] > 0, f"{k} was not launched by any entry point")
     order = ["fused_iter_moments", "warp_planar", "weighted_moments", "warp_floor",
-             "fused_iter_ablate", "trip_update"]
+             "fused_iter_ablate", "trip_update", "level_pack"]
     fields = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "device_ms",
               "cold_device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [dict(name=k, **{f: kernels[k][f] for f in fields})

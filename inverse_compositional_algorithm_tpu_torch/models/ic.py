@@ -10,8 +10,9 @@ One loop serves both algorithm variants of the reference:
 Each pair converges, anneals and can be frozen by the divergence guard on
 its own. The device of the images selects how the normal system of an
 iteration is formed: on CUDA, for float32 with the preconditioner, by the
-fused iteration kernel (K1, plus K4 for the quadratic Hessian), and the
-rest of the iteration by one launch of the fused update (K6); on the CPU,
+fused iteration kernel (K1, plus K4 for the quadratic Hessian) on operands
+that one launch of K7 packs each level, and the rest of the iteration by
+one launch of the fused update (K6); on the CPU,
 and on CUDA for any other dtype or precondition=False, by the plain op
 chain (warp -> residual -> weights -> hessian/rhs, then solve -> compose ->
 guard).
@@ -25,14 +26,13 @@ from dataclasses import dataclass
 import torch
 
 from .. import constants as cts
-from ..ops.gradients import boundary_band_mask, central_gradients
 from ..ops.kernels import _build
-from ..ops.kernels.fused_iter import bind_fused_iter, plan_fused_iter
-from ..ops.kernels.normal_eq import _assemble_b, _assemble_h, fused_hessian
+from ..ops.kernels.fused_iter import FusedIterPlan, bind_fused_iter
+from ..ops.kernels.level_pack import level_gradients, pack_level
+from ..ops.kernels.normal_eq import _assemble_b, _assemble_h, weighted_moments
 from ..ops.kernels.trip_update import plan_trip, still_count, trip_update, trip_update_ref
 from ..ops.normal_equations import (
     RobustLoss,
-    grad_moments,
     hessian,
     residual_moments,
     rhs,
@@ -134,8 +134,9 @@ class _fused_system:
     """CUDA path: the system in the preconditioned metric from one fused-
     iteration kernel launch, which forms the sampling coordinates from the
     motion matrix itself (the quadratic Hessian comes from the moment
-    kernel, once). On CPU tensors the same code runs the kernels' plain
-    versions.
+    kernel, once), on a level's packed operands `plan` (`pack_level`, or
+    `plan_fused_iter` for a band of rows). On CPU tensors the same code runs
+    the kernels' plain versions.
 
     `moments(mat, lam)` launches K1 at [B, 3, 3] motion matrices into the
     level's one output and sums it over the tile group: the trip's system
@@ -150,22 +151,22 @@ class _fused_system:
     `hessian` on global-row Jacobians (preconditioned by `scale`), reduced
     once."""
 
-    def __init__(self, i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside, delta,
-                 scale=None, hessian_chunk: int = 16384, y_offset: int = 0, reduce=None):
-        _, h_loc, ww, _ = i1.shape
-        hh = i2.shape[1]
+    def __init__(self, plan: FusedIterPlan, ttype, robust, nanifoutside, delta, scale=None,
+                 hessian_chunk: int = 16384, y_offset: int = 0, reduce=None):
+        hh, ww = plan.i2p.shape[2:]
+        h_loc = plan.tplp.shape[2]
         tiled = y_offset != 0 or reduce is not None
         self._reduce = reduce = reduce or _identity
         self._ttype, self._hh, self._ww = ttype, hh, ww
         self._robust = robust if robust is not RobustLoss.QUADRATIC else None
-        plan = plan_fused_iter(i1, i2, ix, iy, gxx, gxy, gyy, robust=self._robust is not None)
         self.h_quad = None
         if self._robust is None and tiled:
-            jx, jy = jacobian_fields(ttype, h_loc, ww, dtype=i1.dtype, scale=scale,
-                                     y_offset=y_offset, device=i1.device)
-            self.h_quad = reduce(hessian(gxx, gxy, gyy, jx, jy, chunk=hessian_chunk))
+            jx, jy = jacobian_fields(ttype, h_loc, ww, dtype=plan.tplp.dtype, scale=scale,
+                                     y_offset=y_offset, device=plan.tplp.device)
+            g = plan.gmom
+            self.h_quad = reduce(hessian(g[:, 0], g[:, 1], g[:, 2], jx, jy, chunk=hessian_chunk))
         elif self._robust is None:
-            self.h_quad = fused_hessian(gxx, gxy, gyy, ttype=ttype)
+            self.h_quad = _assemble_h(weighted_moments(plan.gmom), ttype, hh, ww)
         self._k1 = bind_fused_iter(plan, ttype is TransformType.HOMOGRAPHY, hh, ww, self._robust,
                                    nanifoutside, delta, y_offset=y_offset)
 
@@ -231,20 +232,16 @@ def ic_solve(
         delta = effective_delta(delta, hh, ww)
 
     with span("ica.level.setup"):
-        ix, iy = central_gradients(i1)
-        if nanifoutside and delta > 0:
-            band = boundary_band_mask(hh, ww, delta, device=i1.device).to(dt)[None, :, :, None]
-            ix = ix * band
-            iy = iy * band
-        gxx, gxy, gyy = grad_moments(ix, iy)
-
         scale = param_preconditioner(ttype, hh, ww) if precondition else None
         if fused:
-            system = _fused_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust,
-                                   nanifoutside, delta)
+            # One launch of K7 packs the level for K1.
+            packed = pack_level(i1.contiguous(), i2.contiguous(), delta, nanifoutside,
+                                robust is not RobustLoss.QUADRATIC)
+            system = _fused_system(packed, ttype, robust, nanifoutside, delta)
         else:
-            system = _plain_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust,
-                                   nanifoutside, delta, scale, hessian_chunk)
+            ix, iy, g = level_gradients(i1, delta, nanifoutside)
+            system = _plain_system(i1, i2, ix, iy, *g, ttype, robust, nanifoutside, delta, scale,
+                                   hessian_chunk)
         plan, state = start_loop(system, p0.to(dt), ttype, hh, ww, tol=tol, max_iter=max_iter,
                                  robust=robust, lam=lam, scale=scale,
                                  divergence_guard=divergence_guard)

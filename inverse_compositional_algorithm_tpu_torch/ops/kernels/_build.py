@@ -40,6 +40,7 @@ _SIGNATURES = {
     "ica_fused_iter_ablate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "ica_trip_update": [_P] * 15 + [_I] * 9 + [_F] * 7 + [_P],
+    "ica_level_pack": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 # Filled by the first load: library path, whether it was compiled in this

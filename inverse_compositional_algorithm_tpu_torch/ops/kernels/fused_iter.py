@@ -69,11 +69,13 @@ class FusedIterPlan:
 
     i2p: [B, C, H, W] moving image. tplp: [B, P, H, W] packed template
     operands i1, ix, iy (C planes each), then (gxx, gxy, gyy) when robust
-    (P = 3C + 3; P = 3C quadratic).
+    (P = 3C + 3; P = 3C quadratic). gmom: the quadratic path's [B, 3, H, W]
+    gradient moments (K4's maps for the hoisted Hessian); None when robust.
     """
 
     i2p: torch.Tensor
     tplp: torch.Tensor
+    gmom: torch.Tensor | None = None
 
 
 def plan_fused_iter(i1, i2, ix, iy, gxx, gxy, gyy, robust: bool = True) -> FusedIterPlan:
@@ -84,7 +86,8 @@ def plan_fused_iter(i1, i2, ix, iy, gxx, gxy, gyy, robust: bool = True) -> Fused
         parts.append(torch.stack([gxx, gxy, gyy], dim=-1))
     tpl = torch.cat(parts, dim=-1)
     return FusedIterPlan(i2p=i2.permute(0, 3, 1, 2).contiguous(),
-                         tplp=tpl.permute(0, 3, 1, 2).contiguous())
+                         tplp=tpl.permute(0, 3, 1, 2).contiguous(),
+                         gmom=None if robust else torch.stack([gxx, gxy, gyy], dim=1))
 
 
 def _unpack(tplp: torch.Tensor, c: int):

@@ -50,11 +50,12 @@ def _rank_main(fn, rank: int, world: int, port: int, device: str, backend, timeo
         import torch
         import torch.distributed as dist
 
-        from ..ops.kernels import fused_iter, normal_eq, warp, warp_floor
+        from ..ops.kernels import fused_iter, level_pack, normal_eq, warp, warp_floor
         from .sharded import init_distributed
 
         counted = {"fused_iter_moments": fused_iter, "warp_planar": warp,
-                   "weighted_moments": normal_eq, "warp_floor": warp_floor}
+                   "weighted_moments": normal_eq, "warp_floor": warp_floor,
+                   "level_pack": level_pack}
 
         torch.set_num_threads(threads)
         dev = init_distributed(device, backend, timeout_s, init_method=f"tcp://127.0.0.1:{port}",

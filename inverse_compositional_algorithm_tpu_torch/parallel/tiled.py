@@ -50,6 +50,7 @@ from ..models.ic import (
     uses_kernels,
 )
 from ..ops.gradients import boundary_band_mask
+from ..ops.kernels.fused_iter import plan_fused_iter
 from ..ops.normal_equations import RobustLoss, grad_moments
 from ..ops.pyramid import build_pyramid, pyramid_shapes
 from ..ops.transforms import TransformType, pad_params, param_preconditioner, zoom_in_params
@@ -178,9 +179,13 @@ def tiled_ic_solve(
     ix, iy = halo_gradients(i1_loc, *exchange_halo(i1_loc, mesh), y0, hh, delta, nanifoutside)
     g = grad_moments(ix, iy)
     scale = param_preconditioner(ttype, hh, ww) if precondition else None
-    make = _fused_system if fused else _plain_system
-    system = make(i1_loc, i2, ix, iy, *g, ttype, robust, nanifoutside, delta, scale,
-                  hessian_chunk, y_offset=y0, reduce=reduce)
+    if fused:
+        packed = plan_fused_iter(i1_loc, i2, ix, iy, *g, robust=robust is not RobustLoss.QUADRATIC)
+        system = _fused_system(packed, ttype, robust, nanifoutside, delta, scale, hessian_chunk,
+                               y_offset=y0, reduce=reduce)
+    else:
+        system = _plain_system(i1_loc, i2, ix, iy, *g, ttype, robust, nanifoutside, delta, scale,
+                               hessian_chunk, y_offset=y0, reduce=reduce)
     plan, state = start_loop(system, p0.to(dt), ttype, hh, ww, tol=tol, max_iter=max_iter,
                              robust=robust, lam=lam, scale=scale,
                              divergence_guard=divergence_guard)

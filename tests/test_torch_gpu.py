@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 fused iteration, K3 warp, K4 moments, K5 warp
-floor, K6 trip update) against their plain PyTorch versions (K1 and K3 also on the row
-shards of the row-tiled solver), and its entry points (align, the
+floor, K6 trip update, K7 level set-up) against their plain PyTorch versions (K1 and K3
+also on the row shards of the row-tiled solver), and its entry points (align, the
 benchmark, the eval harness, the row-tiled solver on two gloo ranks that
 share the card), on a CUDA device.
 
@@ -14,8 +14,15 @@ Tolerances: moments normalized by max(|ref|, 1) at atol 2e-4, warps of
 positions equal; reruns bitwise equal (no atomics on any result). K6 on
 systems that assemble exactly (tests/trip_cases.py): flags, counts and
 iterations equal, p, error, lambda and the motion matrices within 1e-6 of
-max(|ref|, 1) (the norm and the 3x3 product sum in another order).
+max(|ref|, 1) (the norm and the 3x3 product sum in another order). K7:
+the packed images and gradients bitwise equal to the set-up's op chain; the
+gradient moments sum their C products in channel order, ATen's `.sum(-1)`
+in its own, so each is held within 2(C - 1) units of 2^-24 of the sum of
+the products' magnitudes (a float32 sum of C terms, in any order, lies
+within (C - 1) of them of the exact sum), exact at C = 1.
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -23,7 +30,9 @@ import torch
 
 import inverse_compositional_algorithm_tpu_torch as ica
 from inverse_compositional_algorithm_tpu_torch.ops import gradients, normal_equations
+from inverse_compositional_algorithm_tpu_torch.models import ic as tic
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import fused_iter as k1
+from inverse_compositional_algorithm_tpu_torch.ops.kernels import level_pack as k7
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import normal_eq as k4
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import trip_update as k6
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import warp as k3
@@ -220,7 +229,8 @@ def test_tiled_ic_solve_two_gloo_ranks_on_one_card(cuda):
     """tiled_ic_solve as 2 gloo ranks sharing the card (K1 on row shards,
     the moments all-reduced) against single-card ic_solve: within 1e-2 px
     of corner displacement (float32 sums in another order), equal flags,
-    and every rank launched K1."""
+    and every rank launched K1 and not K7 (a band's gradients need its
+    neighbours' rows)."""
     from inverse_compositional_algorithm_tpu_torch.parallel.ranks import drive
     from inverse_compositional_algorithm_tpu_torch.parallel.spawn import run_ranks
 
@@ -238,7 +248,7 @@ def test_tiled_ic_solve_two_gloo_ranks_on_one_card(cuda):
     xs, ys = [0.0, 127.0, 0.0, 127.0], [0.0, 0.0, 95.0, 95.0]
     bx, by = ica.ops.transforms.transform_points(want.p.cpu().double(), ttype, xs, ys)
     for o in outs:
-        assert o["launches"]["fused_iter_moments"] > 0
+        assert o["launches"]["fused_iter_moments"] > 0 and o["launches"]["level_pack"] == 0
         got = torch.tensor(o["out"]["s.p"]).double()
         ax, ay = ica.ops.transforms.transform_points(got, ttype, xs, ys)
         assert float(torch.hypot(ax - bx, ay - by).max()) <= 1e-2
@@ -324,7 +334,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                                 (torch.float32, False)])
 def test_align_plain_configs_run_on_cuda(cuda, dtype, precondition):
     """float64 and precondition=False run on the card through the plain op
-    chain, as JAX runs its XLA chain for them: no K1 and no K6 (and no K3
+    chain, as JAX runs its XLA chain for them: no K1, K6 or K7 (and no K3
     for float64), and the CPU plain path's result, at 1e-9 on p in float64.
     float32 sums run in another order on the card, so the float32 case is
     held at 1e-2 px of corner displacement, as test_align_on_cuda_matches_cpu."""
@@ -334,11 +344,11 @@ def test_align_plain_configs_run_on_cuda(cuda, dtype, precondition):
     i1 = ica.ops.warp.bicubic_sample(base, *ica.transform_grid(p, T.HOMOGRAPHY, 97, 146))
     cfg = ica.AlignConfig(transform=T.HOMOGRAPHY, robust=R.CHARBONNIER, nscales=3,
                           precondition=precondition)
-    for m in (k1, k3, k4, k6):
+    for m in (k1, k3, k4, k6, k7):
         m.LAUNCHES = 0
     gpu = ica.align(i1.to(cuda), base.to(cuda), cfg, dtype=dtype)
     assert gpu.p.is_cuda and gpu.p.dtype == dtype and gpu.iw.is_cuda
-    assert (k1.LAUNCHES, k4.LAUNCHES, k6.LAUNCHES) == (0, 0, 0)
+    assert (k1.LAUNCHES, k4.LAUNCHES, k6.LAUNCHES, k7.LAUNCHES) == (0, 0, 0, 0)
     assert k3.LAUNCHES == (1 if dtype == torch.float32 else 0)
     cpu = ica.align(i1, base, cfg, dtype=dtype)
     assert torch.equal(gpu.niters.cpu(), cpu.niters)
@@ -662,6 +672,24 @@ def test_trip_update(cuda, ttype, kind, bsz):
                 assert torch.equal(got.p[2], s.p[2]) and float(got.error[2]) == 1.0
 
 
+def span_kernels(prof, span=None) -> list:
+    """Names of the kernels a profile holds (copies and sets left out), one
+    list for each host span named `span` (those launched while it was open),
+    or one list of all of them when `span` is None."""
+    spans, launched, kernels = [], {}, []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CPU:
+            if ev.name() == span:
+                spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+            elif not ev.is_user_annotation() and ev.name().startswith("cu"):
+                launched[ev.correlation_id()] = ev.start_ns()
+        elif not ev.is_user_annotation() and not ev.name().startswith(("Memcpy", "Memset")):
+            kernels.append((ev.correlation_id(), ev.name()))
+    if span is None:
+        return [[n for _, n in kernels]]
+    return [[n for cid, n in kernels if a <= launched.get(cid, -1) < b] for a, b in spans]
+
+
 def test_fused_ic_solve_takes_k6_every_trip(cuda):
     """A kernel-path ic_solve launches K6 once for each K1 launch, every
     trip holds at most 4 kernels (K1, its moment pass, K6), and the result
@@ -687,15 +715,139 @@ def test_fused_ic_solve_takes_k6_every_trip(cuda):
     with torch.profiler.profile(activities=acts) as prof:
         st = ica.ic_solve(i1, i2, p0, T.HOMOGRAPHY, robust=R.CHARBONNIER, delta=5)
         torch.cuda.synchronize()
-    trips, launched, kernels = [], {}, []
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == torch.autograd.DeviceType.CPU:
-            if ev.name() == "ica.trip":
-                trips.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
-            elif not ev.is_user_annotation() and ev.name().startswith("cu"):
-                launched[ev.correlation_id()] = ev.start_ns()
-        elif not ev.is_user_annotation() and not ev.name().startswith(("Memcpy", "Memset")):
-            kernels.append(ev.correlation_id())
-    per_trip = [sum(1 for c in kernels if a <= launched.get(c, -1) < b) for a, b in trips]
-    print(f"{len(trips)} trips, kernels a trip {per_trip}")
-    assert len(trips) == st.it and max(per_trip) <= 4 and min(per_trip) >= 3
+    per_trip = [len(k) for k in span_kernels(prof, "ica.trip")]
+    print(f"{len(per_trip)} trips, kernels a trip {per_trip}")
+    assert len(per_trip) == st.it and max(per_trip) <= 4 and min(per_trip) >= 3
+
+
+def check_level_pack(i1, i2, delta, nanifoutside, robust):
+    """K7 against the set-up's op chain (`pack_level_ref`) on the card: the
+    packed images and gradients bitwise, the moments within the module
+    docstring's bound, a rerun bitwise. Returns the moments' largest
+    difference in units of 2^-24 of their magnitude sum."""
+    c = i1.shape[-1]
+    before = k7.LAUNCHES
+    got = k7.pack_level(i1, i2, delta, nanifoutside, robust)
+    again = k7.pack_level(i1, i2, delta, nanifoutside, robust)
+    assert k7.LAUNCHES == before + 2
+    assert bitwise_equal(got.tplp, again.tplp) and bitwise_equal(got.i2p, again.i2p)
+    assert (got.gmom is None) == robust
+    assert robust or bitwise_equal(got.gmom, again.gmom)
+    del again
+    ref = k7.pack_level_ref(i1, i2, delta, nanifoutside, robust)
+    torch.cuda.synchronize()
+    assert got.tplp.shape == ref.tplp.shape and got.i2p.shape == ref.i2p.shape
+    assert bitwise_equal(got.i2p, ref.i2p)
+    assert bitwise_equal(got.tplp[:, :3 * c], ref.tplp[:, :3 * c])
+    assert robust or got.gmom.shape == ref.gmom.shape
+    units, _ = k7.moment_gap(got, ref)
+    assert units <= 2 * (c - 1), units
+    return units
+
+
+LEVEL_DELTAS = {"delta0": 0, "delta1": 1, "capped": tic.effective_delta(30, 49, 73)}
+
+
+@pytest.mark.parametrize("delta", list(LEVEL_DELTAS.values()), ids=list(LEVEL_DELTAS))
+@pytest.mark.parametrize("nanifoutside", [True, False], ids=["nan", "zero"])
+@pytest.mark.parametrize("robust", [True, False], ids=["robust", "quadratic"])
+@pytest.mark.parametrize("c", [1, 3, 4])
+def test_level_pack(cuda, c, robust, nanifoutside, delta):
+    """K7 on a ragged 49x73 frame (4-float stores at the frame's right edge),
+    K1's `<1>`, `<3>` and generic-channel instances, both losses, both band
+    forms, delta 0, 1 and capped."""
+    i1, i2 = rand((2, 49, 73, c), 2, cuda), rand((2, 49, 73, c), 3, cuda)
+    print(f"moments' largest difference: {check_level_pack(i1, i2, delta, nanifoutside, robust)}"
+          " units")
+
+
+@pytest.mark.parametrize("b,h,w,robust", [(2, 388, 584, True), (1, 1080, 1920, False),
+                                          (800, 388, 584, True), (65544, 6, 9, True)],
+                         ids=["flagship", "1080p_quadratic", "over_2e31", "over_65535_pairs"])
+def test_level_pack_at_size(cuda, b, h, w, robust):
+    """K7 on frames whose width takes float4 stores, on a batch whose
+    B * P * H * W passes 2^31 (the pairs' 64-bit bases), and on more pairs
+    than the grid's z holds (65535: the kernel is launched once per 65535
+    pairs, each launch from its own bases)."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    i1, i2 = (torch.rand((b, h, w, 3), generator=gen, device=cuda) * 255.0 for _ in range(2))
+    if b == 800:
+        assert b * 12 * h * w > 2 ** 31
+    delta = tic.effective_delta(10, h, w)          # as ic_solve caps it: 1 on the 6x9 frame
+    print(f"moments' largest difference: {check_level_pack(i1, i2, delta, True, robust)} units")
+
+
+def test_fused_ic_solve_packs_once_a_level(cuda):
+    """K7 launches once a level of each align call on the kernel path, and a
+    profiled level set-up launches K7 and the loop state's kernels
+    (`start_loop`, profiled alone on the same level) and nothing else: no
+    concatenation and no elementwise pass over the frame."""
+    base = ica.ops.pyramid.gaussian_blur(rand((1, 97, 146, 3), 7, "cpu"), 2.0)
+    p = torch.tensor([[0.01, -0.005, 1.5, 0.008, -0.01, -1.0, 5e-5, -3e-5]])
+    i1 = ica.ops.warp.bicubic_sample(base, *ica.transform_grid(p, T.HOMOGRAPHY, 97, 146))
+    i1, i2 = (t.expand(4, -1, -1, -1).to(cuda).contiguous() for t in (i1, base))
+    for cfg in [ica.AlignConfig(transform=T.HOMOGRAPHY, robust=R.CHARBONNIER, nscales=3),
+                ica.AlignConfig(nscales=3)]:
+        k7.LAUNCHES = 0
+        for _ in range(2):
+            ica.align(i1, i2, cfg)
+        assert k7.LAUNCHES == 2 * cfg.nscales
+    p0 = torch.zeros((4, 8), device=cuda)
+    kw = dict(robust=R.CHARBONNIER, delta=5)
+    ica.ic_solve(i1, i2, p0, T.HOMOGRAPHY, **kw)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ica.ic_solve(i1, i2, p0, T.HOMOGRAPHY, **kw)
+        torch.cuda.synchronize()
+    setup = collections.Counter(n for k in span_kernels(prof, "ica.level.setup") for n in k)
+    system = tic._fused_system(k7.pack_level(i1, i2, 5, True, True), T.HOMOGRAPHY, R.CHARBONNIER,
+                               True, 5)
+    scale = ica.ops.transforms.param_preconditioner(T.HOMOGRAPHY, 97, 146)
+    with torch.profiler.profile(activities=acts) as prof:
+        tic.start_loop(system, p0, T.HOMOGRAPHY, 97, 146, tol=1e-3, max_iter=30,
+                       robust=R.CHARBONNIER, lam=0.0, scale=scale, divergence_guard=True)
+        torch.cuda.synchronize()
+    loop = collections.Counter(span_kernels(prof)[0])
+    print(f"set-up kernels {dict(setup)}; start_loop's {dict(loop)}")
+    packing = setup - loop
+    assert not loop - setup
+    assert len(packing) == 1 and sum(packing.values()) == 1
+    assert "level_pack_kernel" in next(iter(packing))
+
+
+CELL_SHAPES = {
+    "homography_charbonnier.584x388": (T.HOMOGRAPHY, R.CHARBONNIER, 388, 584),
+    "euclidean_quadratic.1080p": (T.EUCLIDEAN, R.QUADRATIC, 1080, 1920),
+    "homography_charbonnier.1080p": (T.HOMOGRAPHY, R.CHARBONNIER, 1080, 1920),
+    "euclidean_quadratic.584x388": (T.EUCLIDEAN, R.QUADRATIC, 388, 584),
+}
+
+
+@pytest.mark.parametrize("cell", list(CELL_SHAPES))
+def test_align_with_k7_matches_the_chain(cuda, monkeypatch, cell):
+    """align() with K7 packing each level lands within the benchmark's
+    p_gap_px limit (1e-3 px of corner displacement) of align() with the
+    set-up's op chain on the card, in the configurations and frame sizes
+    of the benchmark's cells; divergence flags equal."""
+    ttype, robust, h, w = CELL_SHAPES[cell]
+    cfg = ica.AlignConfig(transform=ttype, robust=robust, lam=0.0, nscales=5, nu=0.5, delta=10)
+    base = ica.ops.pyramid.gaussian_blur(rand((1, h, w, 3), 21, cuda), 2.0)
+    p = {T.HOMOGRAPHY: [[0.003, -0.002, 2.5, 0.002, -0.003, -1.5, 2e-6, -1e-6],
+                        [-0.002, 0.001, -3.0, 0.001, 0.002, 2.0, -1e-6, 2e-6]],
+         T.EUCLIDEAN: [[2.5, -1.5, 0.004], [-3.0, 2.0, -0.003]]}[ttype]
+    pp = ica.pad_params(torch.tensor(p, device=cuda))
+    i1 = ica.ops.warp.bicubic_sample(base.expand(2, h, w, 3), *ica.transform_grid(pp, ttype, h, w))
+    i2 = base.expand(2, h, w, 3).contiguous()
+    k7.LAUNCHES = 0
+    got = ica.align(i1, i2, cfg)
+    assert k7.LAUNCHES == cfg.nscales
+    monkeypatch.setattr(tic, "pack_level", k7.pack_level_ref)
+    want = ica.align(i1, i2, cfg)
+    assert k7.LAUNCHES == cfg.nscales
+    xs, ys = [0.0, w - 1.0, 0.0, w - 1.0], [0.0, 0.0, h - 1.0, h - 1.0]
+    ax, ay = ica.ops.transforms.transform_points(got.p.double(), ttype, xs, ys)
+    bx, by = ica.ops.transforms.transform_points(want.p.double(), ttype, xs, ys)
+    gap = float(torch.hypot(ax - bx, ay - by).max())
+    print(f"{cell}: corner gap {gap} px, niters {got.niters.tolist()} / {want.niters.tolist()}")
+    assert gap <= 1e-3
+    assert torch.equal(got.diverged, want.diverged)

@@ -25,6 +25,7 @@ from inverse_compositional_algorithm_tpu_torch.ops import normal_equations as tn
 from inverse_compositional_algorithm_tpu_torch.ops import pyramid as tpy
 from inverse_compositional_algorithm_tpu_torch.ops import transforms as ttr
 from inverse_compositional_algorithm_tpu_torch.ops import warp as twa
+from inverse_compositional_algorithm_tpu_torch.ops.kernels import fused_iter as tfi
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import normal_eq as tnq
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import trip_update as tk6
 
@@ -262,7 +263,8 @@ def test_fused_system_matches_plain_system(loss):
     lam = torch.tensor([5.0, 9.0])
     for nan in (True, False):
         scale = ttr.param_preconditioner(T.HOMOGRAPHY, 37, 53)
-        fused = tic._fused_system(i1, i2, ix, iy, *g, T.HOMOGRAPHY, loss, nan, 4)(p, lam)
+        plan = tfi.plan_fused_iter(i1, i2, ix, iy, *g, robust=loss is not R.QUADRATIC)
+        fused = tic._fused_system(plan, T.HOMOGRAPHY, loss, nan, 4)(p, lam)
         plain = tic._plain_system(i1, i2, ix, iy, *g, T.HOMOGRAPHY, loss, nan, 4, scale,
                                   16384)(p, lam)
         for a, b in zip(fused, plain):

@@ -296,12 +296,19 @@ def test_tiled_fused_system_matches_plain_system(robust):
     scale = tica.ops.transforms.param_preconditioner(T.HOMOGRAPHY, h, w)
     rows = h // nt
     sums = {}
-    for make in (tic._fused_system, tic._plain_system):
+
+    def fused(*band, **kw):
+        plan = k1.plan_fused_iter(*band, robust=robust is not R.QUADRATIC)
+        return tic._fused_system(plan, T.HOMOGRAPHY, robust, True, delta, scale, 16384, **kw)
+
+    def plain(*band, **kw):
+        return tic._plain_system(*band, T.HOMOGRAPHY, robust, True, delta, scale, 16384, **kw)
+
+    for name, make in (("_fused_system", fused), ("_plain_system", plain)):
         parts = [make(i1[:, r * rows:(r + 1) * rows], i2, ix[:, r * rows:(r + 1) * rows],
                       iy[:, r * rows:(r + 1) * rows], *(m[:, r * rows:(r + 1) * rows] for m in g),
-                      T.HOMOGRAPHY, robust, True, delta, scale, 16384, y_offset=r * rows,
-                      reduce=lambda t: t)(p, lam) for r in range(nt)]
-        sums[make.__name__] = [sum(part[i] for part in parts) for i in (0, 1)]
+                      y_offset=r * rows, reduce=lambda t: t)(p, lam) for r in range(nt)]
+        sums[name] = [sum(part[i] for part in parts) for i in (0, 1)]
     whole = tic._plain_system(i1, i2, ix, iy, *g, T.HOMOGRAPHY, robust, True, delta, scale,
                               16384)(p, lam)
     for a, b in zip(sums["_fused_system"], sums["_plain_system"]):

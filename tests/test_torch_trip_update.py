@@ -124,7 +124,9 @@ def test_fused_branch_of_the_loop_matches_its_plain_branch(ttype, robust, lam):
     i1, i2, ix, iy, g = _level()
     h, w = i1.shape[1:3]
     scale = ttr.param_preconditioner(ttype, h, w)
-    fused = tic._fused_system(i1, i2, ix, iy, *g, ttype, robust, True, 3)
+    fused = tic._fused_system(
+        k1.plan_fused_iter(i1, i2, ix, iy, *g, robust=robust is not R.QUADRATIC), ttype, robust,
+        True, 3)
     p0 = torch.zeros((3, 8))
     p0[0, 0] = 0.3
     p0_in = p0.clone()
