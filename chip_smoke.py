@@ -505,10 +505,10 @@ def main() -> int:
             niters=torch.full((kb,), 3, dtype=torch.int32, device=dev),
             active=torch.tensor((rng.uniform(size=kb) > 0.2) | (kb == 1), device=dev),
             diverged=torch.zeros(kb, dtype=torch.bool, device=dev))
-        ktrip = k6.plan_trip(p_gt.clone(), ttype, kh, kw, tol=1e-3, max_iter=30,
-                             anneal=robust is not None,
-                             scale=param_preconditioner(ttype, kh, kw),
-                             divergence_guard=True, kernel=True, h_quad=h_quad)
+        ktrip = k6.plan_kernel_trip(
+            k6.plan_trip(p_gt.clone(), ttype, kh, kw, tol=1e-3, max_iter=30,
+                         anneal=robust is not None, scale=param_preconditioner(ttype, kh, kw),
+                         divergence_guard=True), h_quad)
 
         def k6_state():
             return ica.ICState(p=kstate.p.clone(), error=kstate.error.clone(),

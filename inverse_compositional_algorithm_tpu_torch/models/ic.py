@@ -8,29 +8,34 @@ One loop serves both algorithm variants of the reference:
     (reference src/inverse_compositional_algorithm.py:135-261).
 
 Each pair converges, anneals and can be frozen by the divergence guard on
-its own. The device of the images selects how the normal system of an
-iteration is formed: on CUDA, for float32 with the preconditioner, by the
-fused iteration kernel (K1, plus K4 for the quadratic Hessian) on operands
-that one launch of K7 packs each level, and the rest of the iteration by
-one launch of the fused update (K6); on the CPU,
-and on CUDA for any other dtype or precondition=False, by the plain op
-chain (warp -> residual -> weights -> hessian/rhs, then solve -> compose ->
-guard).
+its own. `make_level` picks, once a level (`uses_kernels`), how the level
+runs, and `iterate` runs either level with one loop body. On CUDA, for
+float32 with the preconditioner, the kernel level: one launch of K7 packs
+the level, K1 (plus K4 for the quadratic Hessian) forms each trip's system
+and one launch of the fused update (K6) does the rest of the trip in
+place. On the CPU, and on CUDA for any other dtype or precondition=False,
+the plain level: the plain op chain (warp -> residual -> weights ->
+hessian/rhs, then solve -> compose -> guard).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
 
 import torch
 
 from .. import constants as cts
 from ..ops.kernels import _build
-from ..ops.kernels.fused_iter import FusedIterPlan, bind_fused_iter
+from ..ops.kernels.fused_iter import FusedIterPlan, bind_fused_iter, plan_fused_iter
 from ..ops.kernels.level_pack import level_gradients, pack_level
 from ..ops.kernels.normal_eq import _assemble_b, _assemble_h, weighted_moments
-from ..ops.kernels.trip_update import plan_trip, still_count, trip_update, trip_update_ref
+from ..ops.kernels.trip_update import (
+    plan_kernel_trip,
+    plan_trip,
+    still_count,
+    trip_update,
+    trip_update_ref,
+)
 from ..ops.normal_equations import (
     RobustLoss,
     hessian,
@@ -49,10 +54,10 @@ from ..ops.transforms import (
 from ..ops.warp import bicubic_sample, domain_mask
 from ..utils.profiling import span
 
-__all__ = ["ICState", "ic_solve", "start_loop", "iterate", "effective_delta"]
+__all__ = ["ICState", "ic_solve", "make_level", "iterate", "effective_delta"]
 
 
-@dataclass
+@dataclasses.dataclass
 class ICState:
     """Per-pair solver state."""
 
@@ -89,17 +94,17 @@ def _identity(t):
 
 def uses_kernels(i1: torch.Tensor, i2: torch.Tensor, p0: torch.Tensor,
                  precondition: bool) -> bool:
-    """True when the solve forms its system by the kernels: every operand on
-    CUDA, float32, with the preconditioner (the kernels form the
-    preconditioned float32 system). Any other config runs the plain op
-    chain on the operands' device, as JAX takes its XLA chain for it (JAX
-    models/ic.py:212-213)."""
+    """True when the level runs the kernels (`make_level`'s one choice of
+    path): every operand on CUDA, float32, with the preconditioner (the
+    kernels form the preconditioned float32 system). Any other config runs
+    the plain op chain on the operands' device, as JAX takes its XLA chain
+    for it (JAX models/ic.py:212-213)."""
     return _build.use_kernel(i1, i2, p0) and precondition and i1.dtype == torch.float32
 
 
 def _plain_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside,
                   delta, scale, hessian_chunk, y_offset: int = 0, reduce=None):
-    """Plain path (CPU; CUDA for float64 or precondition=False):
+    """The plain level's system (CPU; CUDA for float64 or precondition=False):
     system(p, lam) -> (H [B,8,8], b [B,8]) by the plain op chain.
 
     i1 and its gradient maps may be the band of rows y_offset .. of the
@@ -131,7 +136,7 @@ def _plain_system(i1, i2, ix, iy, gxx, gxy, gyy, ttype, robust, nanifoutside,
 
 
 class _fused_system:
-    """CUDA path: the system in the preconditioned metric from one fused-
+    """The kernel level's system, in the preconditioned metric, from one fused-
     iteration kernel launch, which forms the sampling coordinates from the
     motion matrix itself (the quadratic Hessian comes from the moment
     kernel, once), on a level's packed operands `plan` (`pack_level`, or
@@ -142,7 +147,8 @@ class _fused_system:
     level's one output and sums it over the tile group: the trip's system
     for the fused update (K6), with `h_quad`, the quadratic path's hoisted
     Hessian (None when robust). Called as system(p, lam), it gives the
-    assembled (H, b) at parameters p, as `_plain_system`'s system does.
+    assembled (H, b) at parameters p, as `_plain_system`'s system does: the
+    reference the tests hold the kernel level's loop against.
 
     For a band of rows y_offset .. of the frame i2 (`parallel.tiled`), K1
     takes the band's global rows and `reduce` sums its [B, K, 8, 8] moments
@@ -179,6 +185,102 @@ class _fused_system:
             return (_assemble_h(m[:, :3], self._ttype, self._hh, self._ww),
                     _assemble_b(m[:, 3:], self._ttype, self._hh, self._ww))
         return self.h_quad, _assemble_b(m, self._ttype, self._hh, self._ww)
+
+
+class _Level:
+    """The plain level: any system(p, lam) -> (H [B, 8, 8], b [B, 8]) and
+    the plain update (`trip_update_ref`) on its `TripPlan`. `iterate` runs
+    a level: `start()`, the first ICState; a trip, `system(s)` then
+    `update(s, system, agree)`; `going(s)`, whether any pair goes on."""
+
+    def __init__(self, system, plan, lam: float):
+        self._system, self.plan, self._lam = system, plan, lam
+
+    def start(self) -> ICState:
+        p0 = self.plan.p0
+        bsz, dt, dev = p0.shape[0], p0.dtype, p0.device
+        return ICState(
+            p=p0,
+            error=torch.full((bsz,), 1e10, dtype=dt, device=dev),
+            lam=torch.full((bsz,), self._lam if self._lam > 0 else cts.LAMBDA_0, dtype=dt,
+                           device=dev),
+            it=0,
+            niters=torch.zeros((bsz,), dtype=torch.int32, device=dev),
+            active=torch.ones((bsz,), dtype=torch.bool, device=dev),
+            diverged=torch.zeros((bsz,), dtype=torch.bool, device=dev),
+        )
+
+    def system(self, s: ICState):
+        return self._system(s.p, s.lam)
+
+    def update(self, s: ICState, system, agree) -> ICState:
+        p, error, lam, niters, still, diverged = trip_update_ref(*system, s, self.plan)
+        if agree is not None:
+            still = agree(still)
+        return ICState(p=p, error=error, lam=lam, it=s.it + 1, niters=niters, active=still,
+                       diverged=diverged)
+
+    def going(self, s: ICState) -> bool:
+        return bool(s.active.any())
+
+
+class _KernelLevel(_Level):
+    """The kernel level: K1's moments (a `_fused_system`) at the plan's
+    motion matrices go to the fused update (K6, `trip_update`), which
+    writes the state in place and counts the pairs that go on. A trip is
+    K1, K6 and one read of that count."""
+
+    def __init__(self, system: _fused_system, plan, lam: float):
+        super().__init__(system, plan_kernel_trip(plan, system.h_quad), lam)
+
+    def start(self) -> ICState:
+        # The fused update writes p in place: never into the caller's p0.
+        return dataclasses.replace(super().start(), p=self.plan.p0.clone())
+
+    def system(self, s: ICState):
+        return self._system.moments(self.plan.mat, s.lam)
+
+    def update(self, s: ICState, system, agree) -> ICState:
+        trip_update(system, s, self.plan)
+        s = dataclasses.replace(s, it=s.it + 1)
+        if agree is not None:
+            # The vote keeps K6's still or raises, so K6's count stays the
+            # count of the pairs that go on.
+            s.active = agree(s.active)
+        return s
+
+    def going(self, s: ICState) -> bool:
+        return super().going(s) if s.it == 0 else still_count(self.plan, s.it - 1) > 0
+
+
+def make_level(i1: torch.Tensor, i2: torch.Tensor, p0: torch.Tensor, ttype: TransformType, *,
+               tol: float, max_iter: int, robust: RobustLoss, lam: float, nanifoutside: bool,
+               delta: int, precondition: bool, hessian_chunk: int, divergence_guard: bool,
+               gradients=None, y_offset: int = 0, reduce=None) -> _Level:
+    """The level of template i1 against the frame i2 from the warm start
+    p0 (delta already capped): the kernel level, set up by K7
+    (`pack_level`), when `uses_kernels`; else the plain level, set up by
+    `level_gradients`. The row-tiled solver passes its halo `gradients` (as
+    `level_gradients` gives them; K1's planes are then packed by
+    `plan_fused_iter`), its band's `y_offset` and `reduce`."""
+    hh, ww = i2.shape[1:3]
+    is_robust = robust is not RobustLoss.QUADRATIC
+    scale = param_preconditioner(ttype, hh, ww) if precondition else None
+    fused = uses_kernels(i1, i2, p0, precondition)
+    plan = plan_trip(pad_params(p0.to(i1.dtype)).contiguous(), ttype, hh, ww, tol=tol,
+                     max_iter=max_iter, anneal=is_robust and lam <= 0, scale=scale,
+                     divergence_guard=divergence_guard)
+    if fused and gradients is None:
+        packed = pack_level(i1.contiguous(), i2.contiguous(), delta, nanifoutside, is_robust)
+    elif fused:
+        ix, iy, g = gradients
+        packed = plan_fused_iter(i1, i2, ix, iy, *g, robust=is_robust)
+    else:
+        ix, iy, g = gradients or level_gradients(i1, delta, nanifoutside)
+        return _Level(_plain_system(i1, i2, ix, iy, *g, ttype, robust, nanifoutside, delta, scale,
+                                    hessian_chunk, y_offset=y_offset, reduce=reduce), plan, lam)
+    return _KernelLevel(_fused_system(packed, ttype, robust, nanifoutside, delta, scale,
+                                      hessian_chunk, y_offset=y_offset, reduce=reduce), plan, lam)
 
 
 def ic_solve(
@@ -225,118 +327,48 @@ def ic_solve(
     the kernel path, K6's count): one device sync per iteration (the JAX
     package's lax.while_loop has none).
     """
-    _, hh, ww, _ = i1.shape
-    dt = i1.dtype
-    fused = uses_kernels(i1, i2, p0, precondition)
     if delta_cap:
-        delta = effective_delta(delta, hh, ww)
-
+        delta = effective_delta(delta, *i1.shape[1:3])
     with span("ica.level.setup"):
-        scale = param_preconditioner(ttype, hh, ww) if precondition else None
-        if fused:
-            # One launch of K7 packs the level for K1.
-            packed = pack_level(i1.contiguous(), i2.contiguous(), delta, nanifoutside,
-                                robust is not RobustLoss.QUADRATIC)
-            system = _fused_system(packed, ttype, robust, nanifoutside, delta)
-        else:
-            ix, iy, g = level_gradients(i1, delta, nanifoutside)
-            system = _plain_system(i1, i2, ix, iy, *g, ttype, robust, nanifoutside, delta, scale,
-                                   hessian_chunk)
-        plan, state = start_loop(system, p0.to(dt), ttype, hh, ww, tol=tol, max_iter=max_iter,
-                                 robust=robust, lam=lam, scale=scale,
-                                 divergence_guard=divergence_guard)
-    return iterate(system, plan, state, verbose=verbose, collect_trace=collect_trace)
+        level = make_level(i1, i2, p0, ttype, tol=tol, max_iter=max_iter, robust=robust, lam=lam,
+                           nanifoutside=nanifoutside, delta=delta, precondition=precondition,
+                           hessian_chunk=hessian_chunk, divergence_guard=divergence_guard)
+        state = level.start()
+    return iterate(level, state, verbose=verbose, collect_trace=collect_trace)
 
 
-def start_loop(system, p0: torch.Tensor, ttype: TransformType, hh: int, ww: int, *,
-               tol: float, max_iter: int, robust: RobustLoss, lam: float, scale,
-               divergence_guard: bool):
-    """(plan, state) of a level's Gauss-Newton loop over `system`: the
-    update's constants (`TripPlan`; on the kernel path, whose system is a
-    `_fused_system`, also K6's operands) and the first ICState at the
-    padded warm start p0. `hh`, `ww` are the frame's dims (the guard's
-    probes); `scale` the preconditioner or None."""
-    bsz = p0.shape[0]
-    dt, dev = p0.dtype, p0.device
-    fused = isinstance(system, _fused_system)
-    p0p = pad_params(p0)
-    if fused:
-        p0p = p0p.contiguous()      # K6 reads it by pointer
-    plan = plan_trip(p0p, ttype, hh, ww, tol=tol, max_iter=max_iter,
-                     anneal=robust is not RobustLoss.QUADRATIC and lam <= 0, scale=scale,
-                     divergence_guard=divergence_guard, kernel=fused,
-                     h_quad=system.h_quad if fused else None)
-    state = ICState(
-        # The fused update writes p in place: never into the caller's p0.
-        p=p0p.clone() if fused else p0p,
-        error=torch.full((bsz,), 1e10, dtype=dt, device=dev),
-        lam=torch.full((bsz,), lam if lam > 0 else cts.LAMBDA_0, dtype=dt, device=dev),
-        it=0,
-        niters=torch.zeros((bsz,), dtype=torch.int32, device=dev),
-        active=torch.ones((bsz,), dtype=torch.bool, device=dev),
-        diverged=torch.zeros((bsz,), dtype=torch.bool, device=dev),
-    )
-    return plan, state
-
-
-def iterate(system, plan, state: ICState, *, verbose: bool = False, collect_trace: bool = False,
-            agree=None):
-    """The Gauss-Newton loop of `ic_solve` over its `system` from
-    `start_loop`'s (plan, state): the per-pair lambda anneal, the solve, the
-    compose and the divergence guard, until no pair is active.
-    `agree(still) -> still`, when given, makes the ranks of a row-tiled
-    solve take one decision on which pairs go on (`parallel.tiled`).
-
-    On the kernel path (`plan.kernel`: the system is a `_fused_system`),
-    the system gives K1's moments, and one launch of the fused update (K6,
-    `trip_update`) does the rest of the trip in place and counts the pairs that go on: a trip is K1, K6 and one
-    read of that count. Any other system gives (H, b), which the plain op
-    chain (`trip_update_ref`) turns into the next state."""
+def iterate(level: _Level, state: ICState, *, verbose: bool = False,
+            collect_trace: bool = False, agree=None):
+    """The Gauss-Newton loop of `level` (`make_level`) from its first state:
+    the per-pair lambda anneal, the solve, the compose and the divergence
+    guard, until no pair is active. `agree(still) -> still`, when given,
+    makes the ranks of a row-tiled solve take one decision on which pairs
+    go on (`parallel.tiled`)."""
 
     def body(s: ICState) -> ICState:
-        if plan.kernel:
-            with span("ica.trip.system"):
-                m = system.moments(plan.mat, s.lam)
-            with span("ica.trip.update"):
-                trip_update(m, s, plan)
-                s = dataclasses.replace(s, it=s.it + 1)
-                if agree is not None:
-                    # The vote keeps K6's still or raises, so K6's count
-                    # stays the count of the pairs that go on.
-                    s.active = agree(s.active)
-        else:
-            with span("ica.trip.system"):
-                h, b = system(s.p, s.lam)
-            with span("ica.trip.update"):
-                p, error, lam_next, niters, still, diverged = trip_update_ref(h, b, s, plan)
-                if agree is not None:
-                    still = agree(still)
-                s = ICState(p=p, error=error, lam=lam_next, it=s.it + 1, niters=niters,
-                            active=still, diverged=diverged)
+        with span("ica.trip.system"):
+            system = level.system(s)
+        with span("ica.trip.update"):
+            s = level.update(s, system, agree)
         if verbose:
             print(f"iter {s.it - 1}: |Dp|={s.error.tolist()} p={s.p.tolist()} "
                   f"lambda={s.lam.tolist()}")
         return s
 
-    def going(s: ICState) -> bool:
-        # The per-iteration host sync.
-        if plan.kernel and s.it > 0:
-            return still_count(plan, s.it - 1) > 0
-        return bool(s.active.any())
-
     if collect_trace:
         hist = []
-        for _ in range(plan.max_iter):
+        for _ in range(level.plan.max_iter):
             state = body(state)
             # The fused update writes the same tensors every trip.
             hist.append((state.error.clone(), state.p.clone(), state.lam.clone()))
         errs, ps, lams = zip(*hist)
         return state, (torch.stack(errs), torch.stack(ps), torch.stack(lams))
+    # The per-iteration host sync.
     with span("ica.trip.sync"):
-        going_on = going(state)
+        going_on = level.going(state)
     while going_on:
         with span("ica.trip"):
             state = body(state)
             with span("ica.trip.sync"):
-                going_on = going(state)
+                going_on = level.going(state)
     return state

@@ -54,6 +54,22 @@ def pyramidal_solve(
       ICStates coarsest-first; with collect_trace, also the per-scale traces
       coarsest-first.
     """
+    def solve(l1, l2, p):
+        return ic_solve(l1, l2, p, ttype, tol=tol, max_iter=max_iter, robust=robust, lam=lam,
+                        nanifoutside=nanifoutside, delta=delta, precondition=precondition,
+                        hessian_chunk=hessian_chunk, verbose=verbose,
+                        collect_trace=collect_trace, divergence_guard=divergence_guard,
+                        delta_cap=delta_cap)
+
+    return _coarse_to_fine(i1, i2, p0, ttype, nscales, nu, pyramid_method, solve, collect_trace)
+
+
+def _coarse_to_fine(i1, i2, p0, ttype: TransformType, nscales: int, nu: float,
+                    pyramid_method: str, solve, collect_trace: bool = False):
+    """`pyramidal_solve`'s loop with each level solved by `solve(i1_s, i2_s,
+    p) -> state` (or (state, trace) with collect_trace), from the coarsest
+    level to the finest; the row-tiled solver (`parallel.tiled`) passes its
+    own per-level solve."""
     _, hh, ww, _ = i1.shape
     shapes = pyramid_shapes(hh, ww, nscales, nu)
     with span("ica.pyramid"):
@@ -69,14 +85,7 @@ def pyramidal_solve(
     state = None
     for s in range(nscales - 1, -1, -1):
         with span("ica.level"):
-            state = ic_solve(
-                p1[s], p2[s], p, ttype,
-                tol=tol, max_iter=max_iter, robust=robust, lam=lam,
-                nanifoutside=nanifoutside, delta=delta,
-                precondition=precondition, hessian_chunk=hessian_chunk,
-                verbose=verbose, collect_trace=collect_trace,
-                divergence_guard=divergence_guard, delta_cap=delta_cap,
-            )
+            state = solve(p1[s], p2[s], p)
         if collect_trace:
             state, trace = state
             traces.append(trace)

@@ -8,8 +8,9 @@ tensors run csrc/fused_iter.cu, which forms the sampling coordinates itself
 and writes no per-pixel intermediate to device memory; CPU tensors take
 `fused_iter_moments_ref`, the op chain the kernel replaces (transform_grid,
 warp, masked residual, robust weights, channel-reduced moments).
-`bind_fused_iter` is the same kernel for the solver loop, with its checks
-and its output made once a level.
+`bind_fused_iter`, the one place that checks K1's operands, makes its
+output and launches it, binds the kernel to a level's planes for the
+solver loop; `fused_iter_moments` is its one-call form.
 
 `fused_iter_moments_ablate` launches K1's measurement-only ablation
 variants (csrc/fused_iter_ablate.cu), which eval/attr_bench.py times.
@@ -32,7 +33,7 @@ __all__ = ["FusedIterPlan", "plan_fused_iter", "fused_iter_moments", "bind_fused
            "fused_iter_moments_ref", "fused_iter_moments_ablate", "ablate_variant",
            "ABLATE_KNOBS", "ABLATE_NOT_APPLICABLE", "LAUNCHES", "ABLATE_LAUNCHES"]
 
-# Number of times `fused_iter_moments` launched its CUDA kernel.
+# Number of times K1 (`bind_fused_iter`'s kernel) was launched.
 LAUNCHES = 0
 # Number of times `fused_iter_moments_ablate` launched its CUDA kernel.
 ABLATE_LAUNCHES = 0
@@ -162,19 +163,6 @@ def _k1_operands(i2p, tplp, projective, height, width, robust, nanifoutside, del
     return partial, out, scalars
 
 
-def _launch(entry: str, i2p, tplp, mat, projective, lam, height, width, robust,
-            nanifoutside, delta, y_offset, *extra) -> torch.Tensor:
-    """Check the operands of K1 (or of a variant) and launch C entry
-    `entry` with K1's arguments, then `extra`; returns [B, K, 8, 8]."""
-    b = i2p.shape[0]
-    partial, out, scalars = _k1_operands(i2p, tplp, projective, height, width, robust,
-                                         nanifoutside, delta, y_offset)
-    _build.check_operand(mat, "mat", (b, 3, 3))
-    lam = torch.as_tensor(lam, dtype=torch.float32, device=i2p.device).expand(b).contiguous()
-    _build.launch(entry, i2p, tplp, mat, lam, partial, out, *scalars, *extra)
-    return out
-
-
 def fused_iter_moments(i2p, tplp, mat, projective: bool, lam, height: int, width: int,
                        robust: RobustLoss | None, nanifoutside: bool,
                        delta: int, y_offset: int = 0) -> torch.Tensor:
@@ -199,32 +187,29 @@ def fused_iter_moments(i2p, tplp, mat, projective: bool, lam, height: int, width
       [B, K, 8, 8], K = 5 (rho*gxx, rho*gxy, rho*gyy, rho*u, rho*v) or
       2 (u, v).
     """
-    global LAUNCHES
-    _check_args(i2p, tplp, robust, height, width)
-    lam = torch.as_tensor(lam, dtype=torch.float32, device=i2p.device).expand(i2p.shape[0])
-    if not _build.use_kernel(i2p, tplp, mat):
-        return fused_iter_moments_ref(i2p, tplp, mat, projective, lam, height, width, robust,
-                                      nanifoutside, delta, y_offset)
-    out = _launch("ica_fused_iter_moments", i2p, tplp, mat, projective, lam, height, width,
-                  robust, nanifoutside, delta, y_offset)
-    LAUNCHES += 1
-    return out
+    moments = bind_fused_iter(FusedIterPlan(i2p, tplp), projective, height, width, robust,
+                              nanifoutside, delta, y_offset)
+    _build.use_kernel(i2p, tplp, mat)       # raises on matrices on another device
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=i2p.device)
+    return moments(mat, lam.expand(i2p.shape[0]).contiguous())
 
 
 def bind_fused_iter(plan: FusedIterPlan, projective: bool, height: int, width: int,
                     robust: RobustLoss | None, nanifoutside: bool, delta: int,
                     y_offset: int = 0):
-    """`fused_iter_moments` on a level's plan for the solver loop: the planes
-    checked and, on CUDA, the kernel's output and scratch allocated once.
-    Returns moments(mat, lam) -> [B, K, 8, 8] for [B, 3, 3] motion matrices
-    and a [B] lambda; on CUDA every call launches K1 into the same output
-    tensor, which the next call overwrites."""
+    """K1 bound to a level's plan for the solver loop (the arguments of
+    `fused_iter_moments`): the planes checked and, on CUDA, the kernel's
+    output and scratch allocated once. Returns moments(mat, lam) -> [B, K,
+    8, 8] for [B, 3, 3] motion matrices and a [B] lambda; on CUDA every call
+    launches K1 into the same output tensor, which the next call
+    overwrites. On CPU tensors it runs `fused_iter_moments_ref`."""
     i2p, tplp = plan.i2p, plan.tplp
     _check_args(i2p, tplp, robust, height, width)
     if not _build.use_kernel(i2p, tplp):
         def moments_ref(mat, lam):
-            return fused_iter_moments(i2p, tplp, mat, projective, lam, height, width, robust,
-                                      nanifoutside, delta, y_offset)
+            lam = torch.as_tensor(lam, dtype=torch.float32, device=i2p.device)
+            return fused_iter_moments_ref(i2p, tplp, mat, projective, lam.expand(i2p.shape[0]),
+                                          height, width, robust, nanifoutside, delta, y_offset)
         return moments_ref
     b = i2p.shape[0]
     partial, out, scalars = _k1_operands(i2p, tplp, projective, height, width, robust,
@@ -286,7 +271,11 @@ def fused_iter_moments_ablate(i2p, tplp, mat, projective: bool, lam, height: int
     if i2p.shape[1] != 3 or min(height, width) < 4:
         raise ValueError(f"the ablation variants are built for C = 3 and frames of at least "
                          f"4x4, got i2p {tuple(i2p.shape)}")
-    out = _launch("ica_fused_iter_ablate", i2p, tplp, mat, projective, lam, height, width,
-                  robust, nanifoutside, delta, y_offset, variant)
+    b = i2p.shape[0]
+    partial, out, scalars = _k1_operands(i2p, tplp, projective, height, width, robust,
+                                         nanifoutside, delta, y_offset)
+    _build.check_operand(mat, "mat", (b, 3, 3))
+    lam = torch.as_tensor(lam, dtype=torch.float32, device=i2p.device).expand(b).contiguous()
+    _build.launch("ica_fused_iter_ablate", i2p, tplp, mat, lam, partial, out, *scalars, variant)
     ABLATE_LAUNCHES += 1
     return out

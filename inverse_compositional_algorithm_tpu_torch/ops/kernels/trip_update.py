@@ -12,14 +12,15 @@ next trip's motion matrix for K1 and the count of pairs that go on; on CPU
 tensors it assembles with `normal_eq`'s einsums and takes
 `trip_update_ref`.
 
-A level's constants of the update (`TripPlan`) are made once, before its
-first trip: the masks and scales as device tensors, and on the kernel path
-the contraction tensors, the motion matrices and the two counters.
+A level's constants of the update (`TripPlan`, `plan_trip`) are made once,
+before its first trip: the masks and scales as device tensors; the kernel
+level adds K6's operands (`plan_kernel_trip`): the contraction tensors, the
+motion matrices and the two counters.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
 
 import torch
 
@@ -29,8 +30,8 @@ from ..transforms import TransformType, compose_inverse, nparams, params_to_matr
 from . import _build
 from .normal_eq import _assemble_b, _assemble_h, _assembly_tensors
 
-__all__ = ["TripPlan", "plan_trip", "trip_update", "trip_update_ref", "lost_overlap",
-           "still_count", "LAUNCHES"]
+__all__ = ["TripPlan", "plan_trip", "plan_kernel_trip", "trip_update", "trip_update_ref",
+           "lost_overlap", "still_count", "LAUNCHES"]
 
 # Number of times `trip_update` launched its CUDA kernel.
 LAUNCHES = 0
@@ -55,16 +56,16 @@ def lost_overlap(p: torch.Tensor, ttype: TransformType, height: int, width: int,
     return ~ok.any(dim=-1) | ~torch.isfinite(p).all(dim=-1)
 
 
-@dataclass
+@dataclasses.dataclass
 class TripPlan:
     """A level's loop-invariant operands of the update.
 
     live: [8] 0/1 mask of the model's parameters; scale: [8] preconditioner
-    or None; p0: [B, 8] the warm start the guard reverts to. On the kernel
-    path also the contraction tensors t_h (robust) and t_b, the hoisted
-    quadratic Hessian h_quad, the motion matrices `mat` [B, 3, 3] that each
-    update writes for the next K1, and `count` [2] int32, the pairs still
-    active after trip `it` in count[it % 2]."""
+    or None; p0: [B, 8] the warm start the guard reverts to. With K6's
+    operands (`plan_kernel_trip`) also the contraction tensors t_h (robust)
+    and t_b, the hoisted quadratic Hessian h_quad, the motion matrices `mat`
+    [B, 3, 3] that each update writes for the next K1, and `count` [2]
+    int32, the pairs still active after trip `it` in count[it % 2]."""
 
     ttype: TransformType
     height: int
@@ -82,41 +83,38 @@ class TripPlan:
     mat: torch.Tensor | None = None
     count: torch.Tensor | None = None
 
-    @property
-    def kernel(self) -> bool:
-        """Whether the level's trips take `trip_update` (the kernel path)."""
-        return self.count is not None
-
 
 def plan_trip(p0: torch.Tensor, ttype: TransformType, height: int, width: int, *, tol: float,
-              max_iter: int, anneal: bool, scale, divergence_guard: bool, kernel: bool = False,
-              h_quad: torch.Tensor | None = None) -> TripPlan:
+              max_iter: int, anneal: bool, scale, divergence_guard: bool) -> TripPlan:
     """The TripPlan of a level: p0 [B, 8] padded; scale the [8] numpy
-    preconditioner or None; anneal for a robust loss with lam <= 0. With
-    `kernel`, the operands of `trip_update` too (h_quad: the quadratic
-    path's [B, 8, 8] Hessian, None on the robust path)."""
+    preconditioner or None; anneal for a robust loss with lam <= 0."""
     dt, dev = p0.dtype, p0.device
-    if kernel and (scale is None or dt != torch.float32):
-        raise ValueError("the fused update takes the preconditioned float32 system")
     live = torch.zeros(cts.NPARAMS_MAX, dtype=dt)
     live[: nparams(ttype)] = 1.0
-    plan = TripPlan(ttype=ttype, height=height, width=width, tol=tol, max_iter=max_iter,
+    return TripPlan(ttype=ttype, height=height, width=width, tol=tol, max_iter=max_iter,
                     anneal=anneal, guard=divergence_guard, live=live.to(dev),
                     scale=None if scale is None else torch.as_tensor(scale, dtype=dt, device=dev),
                     p0=p0)
-    if kernel:
-        bsz = p0.shape[0]
-        _build.check_operand(p0, "p0", (bsz, cts.NPARAMS_MAX))
-        if h_quad is not None:
-            _build.check_operand(h_quad, "h_quad", (bsz, cts.NPARAMS_MAX, cts.NPARAMS_MAX))
-        t_h, t_b = _assembly_tensors(ttype, height, width, dev, dt)
-        plan.t_h = t_h if h_quad is None else None
-        plan.t_b = t_b
-        plan.h_quad = h_quad
-        plan.mat = params_to_matrix(p0, ttype).contiguous()
-        _build.check_operand(plan.mat, "mat", (bsz, 3, 3))
-        plan.count = torch.zeros(2, dtype=torch.int32, device=dev)
-    return plan
+
+
+def plan_kernel_trip(plan: TripPlan, h_quad: torch.Tensor | None = None) -> TripPlan:
+    """`plan` with the operands of `trip_update` (h_quad: the quadratic
+    path's [B, 8, 8] Hessian, None on the robust path), each checked to the
+    layout K6 reads by pointer."""
+    p0 = plan.p0
+    dt, dev = p0.dtype, p0.device
+    if plan.scale is None or dt != torch.float32:
+        raise ValueError("the fused update takes the preconditioned float32 system")
+    bsz = p0.shape[0]
+    _build.check_operand(p0, "p0", (bsz, cts.NPARAMS_MAX))
+    if h_quad is not None:
+        _build.check_operand(h_quad, "h_quad", (bsz, cts.NPARAMS_MAX, cts.NPARAMS_MAX))
+    t_h, t_b = _assembly_tensors(plan.ttype, plan.height, plan.width, dev, dt)
+    mat = params_to_matrix(p0, plan.ttype).contiguous()
+    _build.check_operand(mat, "mat", (bsz, 3, 3))
+    return dataclasses.replace(plan, t_h=t_h if h_quad is None else None, t_b=t_b,
+                               h_quad=h_quad, mat=mat,
+                               count=torch.zeros(2, dtype=torch.int32, device=dev))
 
 
 def _anneal(lam: torch.Tensor, act: torch.Tensor, plan: TripPlan) -> torch.Tensor:

@@ -21,9 +21,10 @@ The moving image I2 is whole on every rank: a parametric warp can sample
 anywhere in the frame, so only the output (template) rows are local. Row
 indices are global everywhere: the gradients' border and delta band, K1's
 coordinates and moments (`y_offset`), the Jacobians, and the assembly,
-which takes the full frame's dims. The systems and the loop are
-`models.ic`'s, given the band's `y_offset` and the tile group's
-all-reduce.
+which takes the full frame's dims. The level and its loop are
+`models.ic`'s (`make_level`, given the band's halo gradients, its
+`y_offset` and the tile group's all-reduce; `iterate`), and the
+coarse-to-fine loop is `models.pyramidal`'s.
 
 Every collective is an all-reduce (a halo is an all-reduce of a zeroed
 buffer in which each rank fills its own slot), so the same code runs on
@@ -39,21 +40,12 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import constants as cts
-from ..models.ic import (
-    ICState,
-    _fused_system,
-    _plain_system,
-    effective_delta,
-    ic_solve,
-    iterate,
-    start_loop,
-    uses_kernels,
-)
+from ..models.ic import ICState, effective_delta, ic_solve, iterate, make_level
+from ..models.pyramidal import _coarse_to_fine
 from ..ops.gradients import boundary_band_mask
-from ..ops.kernels.fused_iter import plan_fused_iter
 from ..ops.normal_equations import RobustLoss, grad_moments
-from ..ops.pyramid import build_pyramid, pyramid_shapes
-from ..ops.transforms import TransformType, pad_params, param_preconditioner, zoom_in_params
+from ..ops.transforms import TransformType
+from ..utils.profiling import span
 from .mesh import PAIRS_AXIS, TILE_AXIS, axis_size, row_span
 
 __all__ = ["halo_gradients", "exchange_halo", "tiled_ic_solve", "tiled_pyramidal_solve"]
@@ -156,8 +148,6 @@ def tiled_ic_solve(
     if (i2.shape[0], h_loc, i2.shape[2]) != (bsz, hh // nt, ww):
         raise ValueError(f"i1_loc {tuple(i1_loc.shape)} is not a {nt}-way row band of "
                          f"i2 {tuple(i2.shape)}")
-    dt = i1_loc.dtype
-    fused = uses_kernels(i1_loc, i2, p0, precondition)
     if delta_cap:
         delta = effective_delta(delta, hh, ww)
     y0, _ = row_span(mesh, hh)
@@ -176,21 +166,17 @@ def tiled_ic_solve(
             raise RuntimeError(f"the tile ranks disagree on which pairs go on: {n.tolist()}")
         return n == nt
 
-    ix, iy = halo_gradients(i1_loc, *exchange_halo(i1_loc, mesh), y0, hh, delta, nanifoutside)
-    g = grad_moments(ix, iy)
-    scale = param_preconditioner(ttype, hh, ww) if precondition else None
-    if fused:
-        packed = plan_fused_iter(i1_loc, i2, ix, iy, *g, robust=robust is not RobustLoss.QUADRATIC)
-        system = _fused_system(packed, ttype, robust, nanifoutside, delta, scale, hessian_chunk,
-                               y_offset=y0, reduce=reduce)
-    else:
-        system = _plain_system(i1_loc, i2, ix, iy, *g, ttype, robust, nanifoutside, delta, scale,
-                               hessian_chunk, y_offset=y0, reduce=reduce)
-    plan, state = start_loop(system, p0.to(dt), ttype, hh, ww, tol=tol, max_iter=max_iter,
-                             robust=robust, lam=lam, scale=scale,
-                             divergence_guard=divergence_guard)
-    state = iterate(system, plan, state, agree=agree)
-    return _max_trips_over_pairs(state, mesh)
+    with span("ica.level.setup"):
+        ix, iy = halo_gradients(i1_loc, *exchange_halo(i1_loc, mesh), y0, hh, delta,
+                                nanifoutside)
+        level = make_level(i1_loc, i2, p0, ttype, tol=tol, max_iter=max_iter, robust=robust,
+                           lam=lam, nanifoutside=nanifoutside, delta=delta,
+                           precondition=precondition, hessian_chunk=hessian_chunk,
+                           divergence_guard=divergence_guard,
+                           gradients=(ix, iy, grad_moments(ix, iy)), y_offset=y0,
+                           reduce=reduce)
+        state = level.start()
+    return _max_trips_over_pairs(iterate(level, state, agree=agree), mesh)
 
 
 def _max_trips_over_pairs(state: ICState, mesh) -> ICState:
@@ -225,7 +211,7 @@ def tiled_pyramidal_solve(
 ):
     """Coarse-to-fine pyramid over the row-tiled solver.
 
-    `models.pyramidal.pyramidal_solve`'s semantics, with each level solved
+    `models.pyramidal.pyramidal_solve`'s loop, with each level solved
     by `tiled_ic_solve` on this rank's band when the tile axis divides the
     level's height (the large levels, where sharding rows pays), and by the
     single-device `ic_solve` on the whole level on every rank otherwise.
@@ -234,31 +220,16 @@ def tiled_pyramidal_solve(
     per_scale), per_scale coarsest first; every level's `it` is the
     maximum over the pairs axis.
     """
-    _, hh, ww, _ = i1.shape
     nt = axis_size(mesh, TILE_AXIS)
-    shapes = pyramid_shapes(hh, ww, nscales, nu)
-    pyr1 = build_pyramid(i1, nscales, nu, pyramid_method)
-    pyr2 = build_pyramid(i2, nscales, nu, pyramid_method)
-
-    p = pad_params(p0.to(i1.dtype))
-    for s in range(1, nscales):
-        (fh, fw), (ch, cw) = shapes[s - 1], shapes[s]
-        p = zoom_in_params(p, ttype, fw, fh, cw, ch)
-
     kw = dict(tol=tol, max_iter=max_iter, robust=robust, lam=lam, nanifoutside=nanifoutside,
               delta=delta, precondition=precondition, hessian_chunk=hessian_chunk,
               divergence_guard=divergence_guard, delta_cap=delta_cap)
-    per_scale = []
-    state = None
-    for s in range(nscales - 1, -1, -1):
-        lh = shapes[s][0]
+
+    def solve(l1, l2, p):
+        lh = l1.shape[1]
         if lh % nt == 0:
             y0, rows = row_span(mesh, lh)
-            state = tiled_ic_solve(pyr1[s][:, y0:y0 + rows], pyr2[s], p, ttype, mesh=mesh, **kw)
-        else:
-            state = _max_trips_over_pairs(ic_solve(pyr1[s], pyr2[s], p, ttype, **kw), mesh)
-        per_scale.append(state)
-        if s > 0:
-            (fh, fw), (ch, cw) = shapes[s - 1], shapes[s]
-            p = zoom_in_params(state.p, ttype, cw, ch, fw, fh)
-    return state, per_scale
+            return tiled_ic_solve(l1[:, y0:y0 + rows], l2, p, ttype, mesh=mesh, **kw)
+        return _max_trips_over_pairs(ic_solve(l1, l2, p, ttype, **kw), mesh)
+
+    return _coarse_to_fine(i1, i2, p0, ttype, nscales, nu, pyramid_method, solve)

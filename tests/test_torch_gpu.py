@@ -779,9 +779,9 @@ def test_level_pack_at_size(cuda, b, h, w, robust):
 
 def test_fused_ic_solve_packs_once_a_level(cuda):
     """K7 launches once a level of each align call on the kernel path, and a
-    profiled level set-up launches K7 and the loop state's kernels
-    (`start_loop`, profiled alone on the same level) and nothing else: no
-    concatenation and no elementwise pass over the frame."""
+    profiled level set-up launches K7 and the loop state's kernels (the
+    kernel level made and started alone, on a system built beforehand) and
+    nothing else: no concatenation and no elementwise pass over the frame."""
     base = ica.ops.pyramid.gaussian_blur(rand((1, 97, 146, 3), 7, "cpu"), 2.0)
     p = torch.tensor([[0.01, -0.005, 1.5, 0.008, -0.01, -1.0, 5e-5, -3e-5]])
     i1 = ica.ops.warp.bicubic_sample(base, *ica.transform_grid(p, T.HOMOGRAPHY, 97, 146))
@@ -800,15 +800,17 @@ def test_fused_ic_solve_packs_once_a_level(cuda):
         ica.ic_solve(i1, i2, p0, T.HOMOGRAPHY, **kw)
         torch.cuda.synchronize()
     setup = collections.Counter(n for k in span_kernels(prof, "ica.level.setup") for n in k)
-    system = tic._fused_system(k7.pack_level(i1, i2, 5, True, True), T.HOMOGRAPHY, R.CHARBONNIER,
-                               True, 5)
     scale = ica.ops.transforms.param_preconditioner(T.HOMOGRAPHY, 97, 146)
+    system = tic._fused_system(k7.pack_level(i1, i2, 5, True, True), T.HOMOGRAPHY, R.CHARBONNIER,
+                               True, 5, scale)
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        tic.start_loop(system, p0, T.HOMOGRAPHY, 97, 146, tol=1e-3, max_iter=30,
-                       robust=R.CHARBONNIER, lam=0.0, scale=scale, divergence_guard=True)
+        plan = k6.plan_trip(ica.pad_params(p0).contiguous(), T.HOMOGRAPHY, 97, 146, tol=1e-3,
+                            max_iter=30, anneal=True, scale=scale, divergence_guard=True)
+        tic._KernelLevel(system, plan, 0.0).start()
         torch.cuda.synchronize()
     loop = collections.Counter(span_kernels(prof)[0])
-    print(f"set-up kernels {dict(setup)}; start_loop's {dict(loop)}")
+    print(f"set-up kernels {dict(setup)}; the loop state's {dict(loop)}")
     packing = setup - loop
     assert not loop - setup
     assert len(packing) == 1 and sum(packing.values()) == 1

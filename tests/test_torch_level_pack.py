@@ -16,6 +16,7 @@ from inverse_compositional_algorithm_tpu_torch.ops import normal_equations as tn
 from inverse_compositional_algorithm_tpu_torch.ops import transforms as ttr
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import fused_iter as k1
 from inverse_compositional_algorithm_tpu_torch.ops.kernels import level_pack as k7
+from inverse_compositional_algorithm_tpu_torch.ops.kernels import trip_update as k6
 
 T = ttr.TransformType
 R = tne.RobustLoss
@@ -143,6 +144,13 @@ def same_state(a, b):
 ROBUST = [(R.CHARBONNIER, 0.0), (R.LORENTZIAN, 7.0), (R.QUADRATIC, 0.0)]
 
 
+def plan(p0, ttype, h, w, robust, lam, scale):
+    """The level's TripPlan as `ic_solve` makes it at tol 1e-3, 12 iterations."""
+    return k6.plan_trip(p0, ttype, h, w, tol=1e-3, max_iter=12,
+                        anneal=robust is not R.QUADRATIC and lam <= 0, scale=scale,
+                        divergence_guard=True)
+
+
 @pytest.mark.parametrize("robust,lam", ROBUST, ids=["anneal", "fixed", "quad"])
 @pytest.mark.parametrize("ttype", [T.HOMOGRAPHY, T.EUCLIDEAN], ids=["homography", "euclidean"])
 def test_ic_solve_on_cpu_is_unchanged(ttype, robust, lam):
@@ -161,9 +169,8 @@ def test_ic_solve_on_cpu_is_unchanged(ttype, robust, lam):
     scale = ttr.param_preconditioner(ttype, h, w)
     system = tic._plain_system(i1, i2, ix, iy, *tne.grad_moments(ix, iy), ttype, robust, True,
                                3, scale, 16384)
-    plan, state = tic.start_loop(system, p0, ttype, h, w, tol=1e-3, max_iter=12, robust=robust,
-                                 lam=lam, scale=scale, divergence_guard=True)
-    same_state(got, tic.iterate(system, plan, state))
+    solver = tic._Level(system, plan(p0, ttype, h, w, robust, lam, scale), lam)
+    same_state(got, tic.iterate(solver, solver.start()))
     assert k7.LAUNCHES == 0
 
 
@@ -190,6 +197,5 @@ def test_ic_solve_kernel_branch_packs_once_a_level(monkeypatch, robust, lam):
     scale = ttr.param_preconditioner(T.HOMOGRAPHY, h, w)
     system = tic._fused_system(chain(i1, i2, 3, False, robust is not R.QUADRATIC), T.HOMOGRAPHY,
                                robust, False, 3)
-    plan, state = tic.start_loop(system, p0, T.HOMOGRAPHY, h, w, tol=1e-3, max_iter=12,
-                                 robust=robust, lam=lam, scale=scale, divergence_guard=True)
-    same_state(got, tic.iterate(system, plan, state))
+    solver = tic._KernelLevel(system, plan(p0, T.HOMOGRAPHY, h, w, robust, lam, scale), lam)
+    same_state(got, tic.iterate(solver, solver.start()))

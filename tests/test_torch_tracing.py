@@ -151,3 +151,45 @@ def test_level_niters_equal_pyramidal_solve(pairs):
     assert [int(n) for n in one.level_niters] == [int(n[1]) for n in res.level_niters]
     assert all(n.ndim == 0 for n in one.level_niters)
 
+
+
+def test_row_tiled_spans_nest_as_the_layers(pairs):
+    """The row-tiled solver runs `pyramidal_solve`'s coarse-to-fine loop and
+    `ic_solve`'s level: on a one-rank mesh (gloo, in this process) its call
+    emits one `ica.pyramid` and, each level, an `ica.level` holding the
+    level's set-up, its trips and its first sync; one rank's tile holds
+    the whole frame, so its state is `pyramidal_solve`'s, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from inverse_compositional_algorithm_tpu_torch.parallel.mesh import make_mesh
+    from inverse_compositional_algorithm_tpu_torch.parallel.sharded import init_distributed
+    from inverse_compositional_algorithm_tpu_torch.parallel.tiled import tiled_pyramidal_solve
+
+    i1, i2 = pairs
+    kw = dict(nscales=CFG.nscales, robust=CFG.robust, delta=CFG.delta)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed("cpu", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, device_type="cpu")
+        (state, per_scale), rows = profiled_spans(
+            lambda: tiled_pyramidal_solve(i1, i2, torch.zeros(2, 8), CFG.transform, mesh=mesh,
+                                          **kw))
+    finally:
+        dist.destroy_process_group()
+    names = [r[0] for r in rows]
+    assert names.count("ica.pyramid") == 1
+    assert names.count("ica.level") == CFG.nscales == names.count("ica.level.setup")
+    top = {**PARENT, "ica.pyramid": {None}, "ica.level": {None}}
+    for (name, _, _), parent in zip(rows, parents(rows)):
+        assert (parent[0] if parent else None) in top[name], name
+    n = names.count("ica.trip")
+    assert n == sum(s.it for s in per_scale) > 0
+    assert names.count("ica.trip.sync") == n + CFG.nscales
+    want, want_per_scale = pyramidal_solve(i1, i2, torch.zeros(2, 8), CFG.transform, **kw)
+    for got, ref in zip(per_scale + [state], want_per_scale + [want]):
+        for f in ("p", "error", "lam", "niters", "active", "diverged"):
+            assert torch.equal(getattr(got, f), getattr(ref, f)), f

@@ -1,7 +1,7 @@
 """The solver trip's update on the CPU: `trip_update_ref` against the
 update the loop ran before the fused kernel (K6) existed, bit for bit;
 `trip_update` on CPU tensors (assembly, then the plain version, in place);
-and the loop's kernel-path branch against its plain branch on the same
+and the kernel level's loop against the plain level's on the same
 system, bit for bit, with no kernel launched. K6 itself runs only on a
 card (tests/test_torch_gpu.py).
 """
@@ -117,10 +117,10 @@ def _level(h=24, w=32, seed=5):
                                         (R.QUADRATIC, 0.0)], ids=["anneal", "fixed", "quad"])
 @pytest.mark.parametrize("ttype", list(T), ids=[t.name for t in T])
 def test_fused_branch_of_the_loop_matches_its_plain_branch(ttype, robust, lam):
-    """iterate on the kernel path's system (CPU tensors: K1's and K6's plain
+    """iterate over the kernel level (CPU tensors: K1's and K6's plain
     versions, the state written in place, the loop's check read from the
-    count) gives the plain branch's states on the same system, bit for bit,
-    and neither launches a kernel."""
+    count) gives the plain level's states over the same system assembled
+    to (H, b), bit for bit, and neither launches a kernel."""
     i1, i2, ix, iy, g = _level()
     h, w = i1.shape[1:3]
     scale = ttr.param_preconditioner(ttype, h, w)
@@ -130,23 +130,24 @@ def test_fused_branch_of_the_loop_matches_its_plain_branch(ttype, robust, lam):
     p0 = torch.zeros((3, 8))
     p0[0, 0] = 0.3
     p0_in = p0.clone()
-    kw = dict(tol=1e-3, max_iter=12, robust=robust, lam=lam, scale=scale,
-              divergence_guard=True)
 
-    def run(system, **opts):
-        plan, state = tic.start_loop(system, p0, ttype, h, w, **kw)
-        return tic.iterate(system, plan, state, **opts)
+    def run(level, system, **opts):
+        plan = k6.plan_trip(p0, ttype, h, w, tol=1e-3, max_iter=12,
+                            anneal=robust is not R.QUADRATIC and lam <= 0, scale=scale,
+                            divergence_guard=True)
+        level = level(system, plan, lam)
+        return tic.iterate(level, level.start(), **opts)
 
     before = (k1.LAUNCHES, k6.LAUNCHES)
-    got = run(fused)
-    want = run(lambda p, lm: fused(p, lm))
+    got = run(tic._KernelLevel, fused)
+    want = run(tic._Level, fused)
     assert (k1.LAUNCHES, k6.LAUNCHES) == before
     assert got.it == want.it > 1
     for name in STATE:
         assert bitwise(getattr(got, name), getattr(want, name)), name
     assert torch.equal(p0, p0_in)     # the in-place update leaves the caller's p0
-    _, traced = run(fused, collect_trace=True)
-    _, plain = run(lambda p, lm: fused(p, lm), collect_trace=True)
+    _, traced = run(tic._KernelLevel, fused, collect_trace=True)
+    _, plain = run(tic._Level, fused, collect_trace=True)
     for a, b in zip(traced, plain):
         assert bitwise(a, b)
 
@@ -161,9 +162,9 @@ def test_ic_solve_on_cpu_launches_no_trip_update():
 
 @pytest.mark.parametrize("fault", ["h_quad_shape", "h_quad_strided", "p0_strided", "p0_float64"])
 def test_plan_trip_refuses_what_the_kernel_cannot_read(fault):
-    """The kernel path's plan holds the operands K6 reads by pointer
-    (p0, h_quad, the motion matrices) to K6's layout once a level: a wrong
-    shape, stride or dtype raises there, before any trip."""
+    """The kernel level's plan (`plan_kernel_trip`) holds the operands K6
+    reads by pointer (p0, h_quad, the motion matrices) to K6's layout once a
+    level: a wrong shape, stride or dtype raises there, before any trip."""
     bsz = 4
     p0 = torch.zeros((bsz, 8))
     h_quad = torch.eye(8).repeat(bsz, 1, 1)
@@ -175,11 +176,13 @@ def test_plan_trip_refuses_what_the_kernel_cannot_read(fault):
         p0 = torch.zeros((8, bsz)).T
     else:
         p0 = p0.double()
+    def plan(p0, h_quad):
+        return k6.plan_kernel_trip(
+            k6.plan_trip(p0, T.HOMOGRAPHY, 4, 4, tol=1e-3, max_iter=MAX_ITER, anneal=False,
+                         scale=ttr.param_preconditioner(T.HOMOGRAPHY, 4, 4),
+                         divergence_guard=True), h_quad)
+
     with pytest.raises((TypeError, ValueError)):
-        k6.plan_trip(p0, T.HOMOGRAPHY, 4, 4, tol=1e-3, max_iter=MAX_ITER, anneal=False,
-                     scale=ttr.param_preconditioner(T.HOMOGRAPHY, 4, 4),
-                     divergence_guard=True, kernel=True, h_quad=h_quad)
-    ok = k6.plan_trip(torch.zeros((bsz, 8)), T.HOMOGRAPHY, 4, 4, tol=1e-3, max_iter=MAX_ITER,
-                      anneal=False, scale=ttr.param_preconditioner(T.HOMOGRAPHY, 4, 4),
-                      divergence_guard=True, kernel=True, h_quad=torch.eye(8).repeat(bsz, 1, 1))
-    assert ok.kernel and ok.mat.shape == (bsz, 3, 3)
+        plan(p0, h_quad)
+    ok = plan(torch.zeros((bsz, 8)), torch.eye(8).repeat(bsz, 1, 1))
+    assert ok.count.tolist() == [0, 0] and ok.mat.shape == (bsz, 3, 3)

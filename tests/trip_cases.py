@@ -21,7 +21,9 @@ from inverse_compositional_algorithm_tpu_torch.models.ic import ICState
 from inverse_compositional_algorithm_tpu_torch.ops.kernels.normal_eq import (
     _assemble_b, _assemble_h, moments_ref,
 )
-from inverse_compositional_algorithm_tpu_torch.ops.kernels.trip_update import plan_trip
+from inverse_compositional_algorithm_tpu_torch.ops.kernels.trip_update import (
+    plan_kernel_trip, plan_trip,
+)
 from inverse_compositional_algorithm_tpu_torch.ops.transforms import (
     TransformType, param_preconditioner,
 )
@@ -91,9 +93,10 @@ def trip_case(ttype: TransformType, kind: str, bsz: int, seed: int, it: int,
         diverged=torch.tensor(rng.uniform(size=bsz) < 0.1, device=device))
     m = m.to(device)
     h_quad = None if h_quad is None else h_quad.to(device)
-    plan = plan_trip(torch.tensor(p0, **f32), ttype, HH, WW, tol=1e-3, max_iter=MAX_ITER,
-                     anneal=kind == "anneal", scale=param_preconditioner(ttype, HH, WW),
-                     divergence_guard=True, kernel=True, h_quad=h_quad)
+    plan = plan_kernel_trip(
+        plan_trip(torch.tensor(p0, **f32), ttype, HH, WW, tol=1e-3, max_iter=MAX_ITER,
+                  anneal=kind == "anneal", scale=param_preconditioner(ttype, HH, WW),
+                  divergence_guard=True), h_quad)
     if quadratic:
         system = (h_quad, _assemble_b(m, ttype, HH, WW))
     else:
